@@ -18,10 +18,29 @@ Phases, each printing one flushed line with the seconds since start:
    proofs equal a ``device="cpu"`` run byte for byte, and both kernels'
    launch counts moved during the run;
 6. the same for ``zk=True`` at m = 2048;
-7. a ``kernels`` JSON line: for each kernel on each path (plain, ZK) its
-   time, its plain twin's time, its bound and its launches in that path's
-   run; plus the sampler's time and the device-stage and end-to-end
-   proofs/s.
+7. the device-stage and sampler times of the batched prover and a
+   host-clock breakdown of one batch;
+8. kernel K (Keccak Merkle hashing) against its plain twin, bit-exact:
+   group leaves of G = 4 oracles over 16 x 32768 leaves, paired leaves over
+   16 x 16384, nodes over 16 x 16384; 256 sampled digests against
+   ``hashlib.sha3_256``;
+9. kernel N (Goldilocks four-step NTT) against its plain twin, bit-exact, at
+   64 x 2^16 (the kind-7 LDE) and 1 x 2^20, and its leaf entry at B = 128
+   and at 16 x 512 (FRI's final polynomials);
+10. kernel Q (Goldilocks) at m = 8192 x 16 rows and kernel R at n = 8192,
+    k = 1, a message of 8192 words x 16 rows, the kind-7 shapes;
+11. ``prove_r1cs_succinct_batch`` at m = 2^13, S = 16, default FriParams on
+    the card: every proof passes ``verify_r1cs_succinct``, proofs 0 and 1
+    equal a ``device="cpu"`` run byte for byte, a flipped byte in a FRI path
+    and a flipped ``q_alpha`` are rejected, and the launch counts of kernels
+    K, N, Q and R all moved during the run;
+12. a kind-7 JSON line (proofs/s, the median of five timed batches; a
+    host-clock breakdown by stage, each part the median of five staged
+    batches; the device-busy time and idle share of one batch under
+    ``torch.profiler``, from the CUDA activity of its trace), then the
+    ``kernels`` JSON line: for each kernel on each path its time, its plain
+    twin's time, its bound and its launches in that path's run, counted per
+    C entry (the four-step NTT's entry launches two kernels, one per pass).
 
 Any failure ends the script with a non-zero exit and no result line. The
 last line is ``{"ok": true, "device": {...}}``. It needs one CUDA card; it
@@ -56,6 +75,21 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # subtract is a 64-bit add (2) plus a compare-select (1).
 OPS_MUL = {"q45": 16, "goldilocks": 12}
 OPS_ADD = 3
+# Least 32-bit instructions per Keccak-f[1600] permutation (csrc/keccak.cu):
+# per round and 32-bit half of the 25 lanes, theta's column sums take 2
+# three-input logic ops (LOP3) each (5 columns), its rotated mix 1 funnel
+# shift each (5) and 1 LOP3 per lane (25); rho 1 funnel shift per rotated
+# lane (24); chi 1 LOP3 per lane (25); iota 1 on lane 0: 90 per half, 180
+# per round, 24 rounds.
+OPS_KECCAK = 24 * 180
+
+KIND7_M, KIND7_S = 1 << 13, 16
+KIND7_CHECK = 2  # kind-7 proofs compared byte for byte with a CPU run
+KIND7_REPS = 5  # timed kind-7 batches (the first one counts launches)
+# the C entries the kind-7 path must launch (kernels.LAUNCHES keys)
+KIND7_ENTRIES = ("keccak_group_leaves", "keccak_leaves", "keccak_nodes",
+                 "ntt_goldilocks_forward", "ntt_goldilocks_rows", "quotient_goldilocks",
+                 "ring_commit_goldilocks")
 
 
 def phase(msg: str) -> None:
@@ -105,6 +139,280 @@ def ring_work(rows: int, n: int, k: int, msg_len: int):
     nbytes = (k * rows * n + rows * n) * 4 + rows * msg_len * 8 + rows * n * 8 \
         + (k * n + 2 * n + n) * 8
     return nbytes, muls * OPS_MUL["goldilocks"] + adds * OPS_ADD
+
+
+def keccak_work(hashes: int, in_bytes: int):
+    return in_bytes + 32 * hashes, hashes * OPS_KECCAK
+
+
+def ntt_work(rows: int, m: int, twiddled: bool):
+    """Bytes and ops of ``rows`` m-point NTTs (the four-step adds one
+    twiddle product per word; its tables are read once)."""
+    butterflies = rows * (m // 2) * (m.bit_length() - 1)
+    muls = butterflies + (rows * m if twiddled else 0)
+    nbytes = 2 * rows * m * 8 + (m if twiddled else m // 2) * 8
+    return nbytes, muls * OPS_MUL["goldilocks"] + 2 * butterflies * OPS_ADD
+
+
+def device_busy(torch, fn, trace_path: str):
+    """Profile one call of ``fn`` with torch.profiler: (wall s, device-busy
+    s, the six kernels with the most device time as (name, ms)). Busy time
+    is the union of the kernel, memcpy and memset spans of the exported
+    trace; it is None when the trace holds no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.time() - t
+    prof.export_chrome_trace(trace_path)
+    with open(trace_path) as f:
+        events = json.load(f).get("traceEvents", [])
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+              and "dur" in e]
+    busy, end = 0.0, None
+    for start, stop in sorted((e["ts"], e["ts"] + e["dur"]) for e in device):
+        if end is None or start > end:
+            busy, end = busy + stop - start, stop
+        elif stop > end:
+            busy, end = busy + stop - end, stop
+    per_kernel = {}
+    for e in device:
+        if e["cat"] == "kernel":
+            per_kernel[e["name"]] = per_kernel.get(e["name"], 0.0) + e["dur"]
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
+    return wall, (busy / 1e6 if device else None), [(k[:80], v / 1e3) for k, v in top]
+
+
+def kind7_circuit(lst, m: int):
+    """m squaring gates x_i * x_i = y_i over Goldilocks (the JAX package's
+    kind-7 bench circuit); witness [1, x_1..m, y_1..m]."""
+    from lambda_snark_tpu_torch.r1cs.circuit import CircuitBuilder
+
+    builder = CircuitBuilder(lst.NTT_MODULUS)
+    builder.alloc_var()
+    xs = builder.alloc_vars(m)
+    ys = builder.alloc_vars(m)
+    builder.set_public_inputs(1)
+    for x, y in zip(xs, ys):
+        builder.mul_gate(x, x, y)
+    return builder.build()
+
+
+def kind7_phases(np, torch, lst, dev, rng, hold, report):
+    """Phases 8-12: kernels K and N, kernels Q and R at the kind-7 shapes,
+    and ``prove_r1cs_succinct_batch`` on the card. Returns (kind-7 path
+    launches, the kind-7 end-to-end record)."""
+    import dataclasses
+    import hashlib
+    import struct
+
+    from lambda_snark_tpu_torch import kernels
+    from lambda_snark_tpu_torch.commit.lwe_device import DeviceCommitContext
+    from lambda_snark_tpu_torch.ops import keccak, modarith
+    from lambda_snark_tpu_torch.ops.ntt_large import (
+        NttLargePlan,
+        dft_plan,
+        dft_rows,
+        dft_rows_plain,
+        ntt_forward_large,
+        ntt_forward_large_plain,
+    )
+    from lambda_snark_tpu_torch.ops.quotient import QuotientPlan, quotient, quotient_plain
+    from lambda_snark_tpu_torch.ops.ring_commit import ring_commit, ring_commit_plain
+    from lambda_snark_tpu_torch.pipeline import field_psi_for
+    from lambda_snark_tpu_torch.proof import fri_device
+    from lambda_snark_tpu_torch.proof import succinct_batch as sb
+    from lambda_snark_tpu_torch.proof.fri import FriParams, root_of_order
+    from lambda_snark_tpu_torch.proof.succinct import SuccinctProofR1CS, verify_r1cs_succinct
+    from lambda_snark_tpu_torch.proof.succinct_device import eval_device, quotient_lde_device
+
+    gl = lst.NTT_MODULUS
+    m, s = KIND7_M, KIND7_S
+    n0 = 8 * m  # default FriParams: log_blowup 3
+
+    def words(shape, high=None):
+        vals = rng.integers(0, high or (1 << 64) - 1, size=shape, dtype=np.uint64,
+                            endpoint=high is None)
+        return modarith.to_words(vals, dev)
+
+    # --- phase 8: kernel K ------------------------------------------------------
+    vals = words((s, 4, n0))
+    report["keccak_group_leaves"] = hold(
+        f"phase 8 kernel K group leaves G=4 {s}x{n0 // 2}", keccak.hash_leaves_flex,
+        keccak.hash_leaves_flex_plain, (vals,), keccak_work(s * n0 // 2, vals.numel() * 8))
+    pairs = words((s, n0 // 2))
+    report["keccak_leaves"] = hold(
+        f"phase 8 kernel K paired leaves {s}x{n0 // 4}", keccak.hash_leaves,
+        keccak.hash_leaves_plain, (pairs,), keccak_work(s * n0 // 4, pairs.numel() * 8))
+    level = words((s, n0 // 2, 4))
+    report["keccak_nodes"] = hold(
+        f"phase 8 kernel K nodes {s}x{n0 // 4}", keccak.hash_nodes, keccak.hash_nodes_plain,
+        (level,), keccak_work(s * n0 // 4, level.numel() * 8))
+    v_host = modarith.to_u64(vals)
+    leaf_dig = modarith.to_u64(keccak.hash_leaves_flex(vals)).view(np.uint8)
+    lvl_host = modarith.to_u64(level).view(np.uint8)
+    node_dig = modarith.to_u64(keccak.hash_nodes(level)).view(np.uint8)
+    for _ in range(128):
+        t, i = int(rng.integers(s)), int(rng.integers(n0 // 2))
+        msg = b"\x00" + b"".join(struct.pack("<QQ", int(v_host[t, g, i]),
+                                             int(v_host[t, g, i + n0 // 2])) for g in range(4))
+        j = int(rng.integers(n0 // 4))
+        node = b"\x01" + lvl_host[t, 2 * j].tobytes() + lvl_host[t, 2 * j + 1].tobytes()
+        if (leaf_dig[t, i].tobytes() != hashlib.sha3_256(msg).digest()
+                or node_dig[t, j].tobytes() != hashlib.sha3_256(node).digest()):
+            raise RuntimeError("kernel K disagrees with hashlib.sha3_256")
+    phase("phase 8 kernel K: 256 sampled digests equal hashlib.sha3_256")
+
+    # --- phase 9: kernel N ------------------------------------------------------
+    for key_, rows, size in (("ntt_goldilocks", 4 * s, n0), ("ntt_goldilocks_2pow20", 1, 1 << 20)):
+        plan = NttLargePlan.create(size, root_of_order(gl, size), device=dev)
+        x = words((rows, size), gl)
+        report[key_] = hold(
+            f"phase 9 kernel N {rows}x{size}", lambda v, plan=plan: ntt_forward_large(plan, v),
+            lambda v, plan=plan: ntt_forward_large_plain(plan, v), (x,),
+            ntt_work(rows, size, True))
+    # the leaf at B = 128 (the TPU leaf's radix), and at the kind-7 path's
+    # shape: FRI's final polynomials, S rows of final_len << log_blowup
+    # points with the inverse root
+    final_n = FriParams().final_len << FriParams().log_blowup
+    for key_, b, rows, omega in (
+            ("ntt_goldilocks_leaf", 128, 4 * s * n0 // 128, root_of_order(gl, 128)),
+            ("ntt_goldilocks_leaf_kind7", final_n, s,
+             pow(root_of_order(gl, final_n), gl - 2, gl))):
+        leaf = dft_plan(b, omega, dev)
+        x = words((rows, b), gl)
+        report[key_] = hold(
+            f"phase 9 kernel N leaf B={b} x {rows} rows",
+            lambda v, leaf=leaf: dft_rows(leaf, v), lambda v, leaf=leaf: dft_rows_plain(leaf, v),
+            (x,), ntt_work(rows, b, False))
+
+    # --- phase 10: kernels Q and R at the kind-7 shapes ---------------------------
+    qplan = QuotientPlan.create(m, gl, field_psi_for(m, gl), device=dev)
+    a, b = words((s, m), gl), words((s, m), gl)
+    c = modarith.mul_mod(a, b, gl)
+    report["quotient_goldilocks_kind7"] = hold(
+        f"phase 10 kernel Q goldilocks m={m} rows={s}", lambda *v: quotient(qplan, *v),
+        lambda *v: quotient_plain(qplan, *v), (a, b, c), quotient_work(s, m, "goldilocks"))
+    ctx7 = lst.LweContext(lst.Params(lst.SecurityLevel.BITS128,
+                                     lst.Profile.ring_b(n=m, k=1, q=gl, sigma=SIGMA)),
+                          context_seed=0)
+    ring7 = DeviceCommitContext.from_host(ctx7, dev).ring
+    s_draws = torch.from_numpy(rng.integers(-39, 40, size=(1, s, m), dtype=np.int32)).to(dev)
+    e_draws = torch.from_numpy(rng.integers(-39, 40, size=(s, m), dtype=np.int32)).to(dev)
+    msg = words((s, m), gl)
+    report["ring_commit_kind7"] = hold(
+        f"phase 10 kernel R n={m} k=1 rows={s} msg_len={m}", lambda *v: ring_commit(ring7, *v),
+        lambda *v: ring_commit_plain(ring7, *v), (s_draws, e_draws, msg),
+        ring_work(s, m, 1, m))
+
+    # --- phase 11: prove_r1cs_succinct_batch on the card -------------------------
+    r1cs7 = kind7_circuit(lst, m)
+    xs = rng.integers(0, gl, size=(s, m), dtype=np.uint64)
+    ys = modarith.to_u64(modarith.mul_mod(modarith.to_words(xs, dev),
+                                          modarith.to_words(xs, dev), gl))
+    wits = np.concatenate([np.ones((s, 1), np.uint64), xs, ys], axis=1)
+    seeds = [7] + list(range(100, 100 + s - 1))
+    params = FriParams()
+    lst.prove_r1cs_succinct_batch(r1cs7, wits, ctx7, seeds)  # warm-up
+    cpu = lst.prove_r1cs_succinct_batch(r1cs7, wits[:KIND7_CHECK], ctx7, seeds[:KIND7_CHECK],
+                                        device="cpu")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t = time.time()
+    proofs = lst.prove_r1cs_succinct_batch(r1cs7, wits, ctx7, seeds)
+    elapsed = time.time() - t
+    launches = dict(kernels.LAUNCHES)
+    if min(launches[e] for e in KIND7_ENTRIES) < 1:
+        raise RuntimeError(f"kind 7: a kernel of the path was not launched: {launches}")
+    if len(proofs) != s or not all(verify_r1cs_succinct(p, [1], r1cs7) for p in proofs):
+        raise RuntimeError("kind 7: a proof from the card does not verify")
+    for i in range(KIND7_CHECK):
+        if proofs[i].to_bytes() != cpu[i].to_bytes():
+            raise RuntimeError(f"kind 7: proof {i} differs from the CPU run")
+    p0 = proofs[0]
+    q0 = p0.fri.queries[0]
+    field_name = "layer_openings" if q0.layer_openings else "input_openings"
+    ops = getattr(q0, field_name)
+    bad_op = dataclasses.replace(ops[0], path=bytes([ops[0].path[0] ^ 1]) + ops[0].path[1:])
+    bad_q = dataclasses.replace(q0, **{field_name: (bad_op,) + ops[1:]})
+    tampered = [
+        dataclasses.replace(p0, fri=dataclasses.replace(
+            p0.fri, queries=(bad_q,) + p0.fri.queries[1:])),
+        dataclasses.replace(p0, q_alpha=(p0.q_alpha + 1) % gl),
+    ]
+    if any(verify_r1cs_succinct(p, [1], r1cs7) for p in tampered):
+        raise RuntimeError("kind 7: a tampered proof verified")
+    times = [elapsed]
+    for _ in range(KIND7_REPS - 1):
+        torch.cuda.synchronize()
+        t = time.time()
+        lst.prove_r1cs_succinct_batch(r1cs7, wits, ctx7, seeds)
+        times.append(time.time() - t)
+    elapsed = sorted(times)[len(times) // 2]
+    phase(f"phase 11 prove_r1cs_succinct_batch m={m} S={s} n0={n0}: {s} proofs verify, "
+          f"first {KIND7_CHECK} byte-identical to the CPU run, a flipped path byte and "
+          f"a flipped q_alpha rejected; launches {launches}; end to end "
+          f"{[round(x, 4) for x in times]} s, median {elapsed:.4f} s "
+          f"({s / elapsed:.2f} proofs/s), {len(p0.to_bytes())} bytes per proof")
+
+    # --- phase 12: host-clock breakdown of kind-7 batches ------------------------
+    def staged():
+        """One batch through the entry point's stages, timed part by part."""
+        parts = {}
+        torch.cuda.synchronize()
+        t = time.time()
+        d_bound, n0_, omega_n = sb._check_instance(r1cs7, params, 0)
+        offset = sb.coset_offset(gl)
+        az, bz, cz = sb._embed_and_eval(r1cs7, wits, dev)
+        lde, comms, polys, forest = quotient_lde_device(az, bz, cz, n0_, offset, ctx7, seeds)
+        torch.cuda.synchronize()
+        parts["frontend_on_card_s"] = time.time() - t
+        t = time.time()
+        chals, alphas, betas = sb._derive_batch_challenges(r1cs7, wits, comms, forest.roots, gl)
+        evals = eval_device(polys, alphas, betas)
+        trs, lams = sb._seed_batch_transcripts(gl, m, 0, params, d_bound, forest.roots,
+                                               alphas, betas, evals)
+        parts["challenges_and_transcripts_s"] = time.time() - t
+        t = time.time()
+        g = fri_device.deep_combine_device(lde, alphas, betas, lams, evals, offset, omega_n)
+        committed, finals, idx = fri_device.fri_commit_layers(g, offset, omega_n, gl, params,
+                                                              trs)
+        torch.cuda.synchronize()
+        parts["deep_and_fri_on_card_s"] = time.time() - t
+        t = time.time()
+        fri_proofs = fri_device.fri_open(lde, forest, committed, finals, idx)
+        again = [SuccinctProofR1CS(
+            comms[i], forest.roots[i], *chals[i], *(int(v) for v in evals[i]),
+            fri=fri_proofs[i], m=m, mask_len=0, log_blowup=params.log_blowup,
+            num_queries=params.num_queries, final_len=params.final_len, modulus=gl)
+            for i in range(s)]
+        parts["query_assembly_s"] = time.time() - t
+        if [p.to_bytes() for p in again] != [p.to_bytes() for p in proofs]:
+            raise RuntimeError("kind 7: the staged run differs from the entry point's proofs")
+        return parts
+
+    runs = [staged() for _ in range(KIND7_REPS)]
+    parts = {key: sorted(r[key] for r in runs)[len(runs) // 2] for key in runs[0]}
+    total = sum(parts.values())
+    phase(f"phase 12 kind-7 host-clock breakdown, median of {KIND7_REPS} batches "
+          f"({total:.3f} s): {parts}")
+    trace = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                         "kind7_trace.json")
+    os.makedirs(os.path.dirname(trace), exist_ok=True)
+    wall, busy, top = device_busy(
+        torch, lambda: lst.prove_r1cs_succinct_batch(r1cs7, wits, ctx7, seeds), trace)
+    idle = None if busy is None else 1.0 - busy / wall
+    phase(f"phase 12 kind-7 profiled batch: {wall:.4f} s wall, device busy "
+          f"{'not measured' if busy is None else f'{busy:.4f} s, idle share {idle:.3f}'}; "
+          f"most device time: {[(k, round(v, 3)) for k, v in top]}")
+    return launches, dict(m=m, statements=s, n0=n0, end_to_end_s=times,
+                          end_to_end_median_s=elapsed, proofs_per_s=s / elapsed,
+                          breakdown_median_s=parts, proof_bytes=len(p0.to_bytes()),
+                          profiled_wall_s=wall, device_busy_s=busy, device_idle_share=idle,
+                          top_kernels_ms=top)
 
 
 def main() -> int:
@@ -251,7 +559,7 @@ def main() -> int:
         proofs = prove_r1cs_batched(circuit, w, ctx, seed=SEED, zk=zk)
         elapsed = time.time() - t
         launches = dict(kernels.LAUNCHES)
-        if min(launches.values()) < 1:
+        if min(launches["quotient_q45"], launches["ring_commit_goldilocks"]) < 1:
             raise RuntimeError(f"{label}: a kernel of the path was not launched: {launches}")
         if len(proofs) != BATCH:
             raise RuntimeError(f"{label}: {len(proofs)} proofs for {BATCH} witnesses")
@@ -296,11 +604,11 @@ def main() -> int:
         sfx = "" if path == "plain" else "_zk"
         entries += [
             dict(name=f"quotient_q45{sfx}", route="cuda", source=f"{src}/quotient.cu",
-                 replaces=quotient_src, launches=stage[path]["launches"]["quotient"],
+                 replaces=quotient_src, launches=stage[path]["launches"]["quotient_q45"],
                  **report[f"quotient_q45{sfx}"], library_ms=None),
             dict(name=f"ring_commit_goldilocks{sfx}", route="cuda",
                  source=f"{src}/ring_commit.cu", replaces=ring_src,
-                 launches=stage[path]["launches"]["ring_commit"],
+                 launches=stage[path]["launches"]["ring_commit_goldilocks"],
                  **report[f"ring_commit{sfx}"], library_ms=None),
         ]
     phase(f"phase 7 device stage m={M_PLAIN} B={BATCH}: {stage_ms:.3f} ms "
@@ -311,6 +619,34 @@ def main() -> int:
                       "breakdown_s": breakdown,
                       "end_to_end_s": {k: v["end_to_end_s"] for k, v in stage.items()}}),
           flush=True)
+
+    k7, kind7 = kind7_phases(np, torch, lst, dev, rng, hold, report)
+    keccak_src = "lambda_snark_tpu/ops/keccak_pallas.py:242"
+    # launches: the kind-7 run's count of the entry that serves the shape.
+    # Its only four-step transform is the n0 = 2^16-point LDE and its only
+    # leaf transform the final polynomials (S x 512), so the 2^20 and the
+    # B = 128 shapes (more calls of the same entries) have none of them.
+    for name, rep, src_file, replaces, count in (
+            ("keccak_group_leaves", "keccak_group_leaves", "keccak.cu", keccak_src,
+             k7["keccak_group_leaves"]),
+            ("keccak_leaves", "keccak_leaves", "keccak.cu", keccak_src, k7["keccak_leaves"]),
+            ("keccak_nodes", "keccak_nodes", "keccak.cu", keccak_src, k7["keccak_nodes"]),
+            ("ntt_goldilocks", "ntt_goldilocks", "ntt_goldilocks.cu",
+             "lambda_snark_tpu/ops/ntt_mxu.py:631", k7["ntt_goldilocks_forward"]),
+            ("ntt_goldilocks_2pow20", "ntt_goldilocks_2pow20", "ntt_goldilocks.cu",
+             "lambda_snark_tpu/ops/ntt_mxu.py:631", 0),
+            ("ntt_goldilocks_leaf", "ntt_goldilocks_leaf", "ntt_goldilocks.cu",
+             "lambda_snark_tpu/ops/ntt_mxu.py:378", 0),
+            ("ntt_goldilocks_leaf_kind7", "ntt_goldilocks_leaf_kind7", "ntt_goldilocks.cu",
+             "lambda_snark_tpu/ops/ntt_mxu.py:378", k7["ntt_goldilocks_rows"]),
+            ("quotient_goldilocks_kind7", "quotient_goldilocks_kind7", "quotient.cu",
+             "lambda_snark_tpu/ops/quotient_pallas.py:143", k7["quotient_goldilocks"]),
+            ("ring_commit_goldilocks_kind7", "ring_commit_kind7", "ring_commit.cu",
+             ring_src, k7["ring_commit_goldilocks"])):
+        entries.append(dict(name=name, route="cuda", source=f"{src}/{src_file}",
+                            replaces=replaces, launches=count, **report[rep],
+                            library_ms=None))
+    print(json.dumps({"kind7": kind7}), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)

@@ -1,7 +1,8 @@
 """lambda_snark_tpu_torch: the PyTorch / CUDA port of lambda_snark_tpu.
 
-It runs the batched prove stage of the JAX package on an NVIDIA H100 and
-gives the same proof bytes. It imports torch, numpy and the standard library
+It runs the batched prove stage (kinds 2 and 3) and the batched succinct
+FRI prover (kind 7) of the JAX package on an NVIDIA H100 and gives the same
+proof bytes. It imports torch, numpy and the standard library
 only, never ``jax`` or ``lambda_snark_tpu``. Entry points default to
 ``device="cuda"`` and raise without a card unless given ``device="cpu"``,
 where every kernel runs as its plain PyTorch twin.
@@ -18,4 +19,7 @@ from .core.params import (
     SecurityLevel,
 )
 from .prover_batched import prove_r1cs_batched
+from .proof.fri import FriParams
+from .proof.succinct import SuccinctProofR1CS, prove_r1cs_succinct, verify_r1cs_succinct
+from .proof.succinct_batch import prove_r1cs_succinct_batch
 from .proof.types import ProofR1CS, ProofR1csZk

@@ -25,6 +25,7 @@ from ..ops.ntt import NttPlan, ntt_forward_negacyclic
 RING_MODULUS = NTT_MODULUS
 
 _DOMAIN_A = b"LSNARK-TPU/A/v1"
+_DOMAIN_RAND = b"LSNARK-TPU/rand/v1"
 
 
 def _shake_words_mod_p(tag: bytes, seed_bytes: bytes, count: int) -> np.ndarray:
@@ -82,3 +83,16 @@ class Commitment:
 
     def to_bytes(self) -> bytes:
         return self.words.astype("<u8").tobytes()
+
+
+def randomness_keys(ctx: LweContext, seeds) -> np.ndarray:
+    """(S, 8) uint32 ChaCha20 key words of the per-seed randomness streams:
+    SHA3-256("LSNARK-TPU/rand/v1" || LE64(ctx_seed) || LE64(seed))."""
+    keys = np.empty((len(seeds), 8), dtype=np.uint32)
+    for i, seed in enumerate(seeds):
+        key = hashlib.sha3_256(
+            _DOMAIN_RAND + ctx.context_seed.to_bytes(8, "little")
+            + (int(seed) & ((1 << 64) - 1)).to_bytes(8, "little")
+        ).digest()
+        keys[i] = np.frombuffer(key, dtype="<u4")
+    return keys

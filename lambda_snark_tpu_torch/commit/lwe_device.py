@@ -1,10 +1,16 @@
 """Batched Module-LWE commitments on the device.
 
 The counterpart of the JAX package's ``commit/lwe_jax.py``
-(``DeviceCommitContext``, ``commit_batch``): the randomness comes from the
-counter-mode threefry sampler (``ops.sampler``), keyed by (key, stream j,
-statement b, position t), so a statement's draws do not depend on the batch
-it is in; the ring product is kernel R (``ops.ring_commit``).
+(``DeviceCommitContext``, ``commit_batch``, ``commit_in_graph_chacha``).
+Two sources of randomness, both in torch ops (``ops.sampler``):
+
+- ``commit_batch``: counter-mode threefry keyed by (key, stream j,
+  statement b, position t), so a statement's draws do not depend on the
+  batch it is in (the batched prover of kinds 2 and 3);
+- ``commit_batch_chacha``: one ChaCha20 stream per commit seed, value-
+  identical to the host ``lwe.commit_batch`` (the succinct kind 7).
+
+The ring product is kernel R (``ops.ring_commit``).
 """
 
 from __future__ import annotations
@@ -17,7 +23,7 @@ import torch
 from ..device import resolve
 from ..ops import modarith, sampler
 from ..ops.ring_commit import RingCommitPlan, ring_commit
-from .lwe import LweContext, goldilocks_ring_plan
+from .lwe import LweContext, goldilocks_ring_plan, randomness_keys
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -67,3 +73,16 @@ def commit_batch(dctx: DeviceCommitContext, messages: torch.Tensor, key):
     Returns (commitment words (B, n), s (k, B, n) int32, e (B, n) int32)."""
     s, e = sample_randomness(dctx, key, messages.shape[0])
     return ring_commit(dctx.ring, s, e, messages.contiguous()), s, e
+
+
+def commit_batch_chacha(dctx: DeviceCommitContext, messages: torch.Tensor,
+                        ctx: LweContext, seeds) -> torch.Tensor:
+    """Commit to messages (S, L) int64 words, L <= n, with the randomness of
+    ``lwe.commit(ctx, message, seed)`` per statement; returns (S, n) words.
+    Messages enter as they are (canonical mod p): the host path's reduction
+    mod the field q is the caller's."""
+    keys = torch.from_numpy(randomness_keys(ctx, seeds).astype(np.int64)).to(dctx.device)
+    signed = sampler.sample_chacha_signed(keys, dctx.k, dctx.n, dctx.cdf)  # (S, k+1, n)
+    s = signed[:, : dctx.k].transpose(0, 1).contiguous()
+    e = signed[:, dctx.k].contiguous()
+    return ring_commit(dctx.ring, s, e, messages.contiguous())

@@ -38,3 +38,11 @@ class InvalidDimensionsError(LambdaSnarkError):
 
 class DomainError(LambdaSnarkError):
     """No valid interpolation domain for the requested (modulus, m) pair."""
+
+
+class CommitmentError(LambdaSnarkError):
+    """Commitment generation failure (a message longer than the ring degree)."""
+
+
+class SerializationError(LambdaSnarkError):
+    """Proof (de)serialization failure."""

@@ -21,6 +21,9 @@ NTT_PRIMITIVE_ROOT = 1753635133440165772
 #: 45-bit NTT-friendly prime 2^44 - 16982015; q - 1 = 2147481575 * 2^13.
 NTT_FRIENDLY_MODULUS = 17592169062401
 
+#: Healthcare dump prime 2^31 - 2^27 + 1 (2-adicity 27).
+HEALTHCARE_DUMP_MODULUS = 2013265921
+
 #: Primitive m-th roots of unity mod NTT_FRIENDLY_MODULUS (generator 3).
 ROOTS_OF_UNITY_45BIT = {
     4: 981206394875,

@@ -1,0 +1,213 @@
+// Kernel K: batched single-block SHA3-256 for Merkle trees, one hash per
+// thread.
+//
+// Replaces the TPU kernel keccak_pallas.py::_hash_call (kernels _leaf_kernel,
+// _flex_leaf_kernel, _node_kernel; pallas_call at ops/keccak_pallas.py:242),
+// reached through hash_leaves (:281), hash_leaves_flex (:294) and
+// hash_nodes (:310). Three messages, each one 136-byte rate block:
+//
+//   group leaf i of tree t:  0x00 || concat_g LE64(v[t,g,i]) LE64(v[t,g,i+n/2])
+//                            (G <= 8 oracles; G = 1 is the paired FRI leaf)
+//   node j:                  0x01 || digest[2j] || digest[2j+1]
+//
+// Digests are 4 LE64 words (the first 4 lanes of the state), stored as
+// out[h*4 + k], so a level (T, rows, 4) is also the next level's input.
+//
+// What bounds it: integer instructions. A Keccak-f[1600] permutation is
+// 24 rounds of about 30 XOR/AND-NOT and 25 rotates on 64-bit lanes (each
+// two 32-bit funnel shifts), against at most 136 bytes in and 32 out per
+// hash. Design: the 25 lanes live in registers (every index below is a
+// compile-time constant, so nothing spills to local memory), the message
+// block is built in registers from the raw codeword words (a leaf reads
+// v[i] and v[i + n/2] straight from the LDE, no payload pass), and
+// consecutive threads read and write consecutive words.
+#include <cstdint>
+#include <cuda_runtime.h>
+
+constexpr int kThreads = 256;
+
+__constant__ uint64_t kRoundConstants[24] = {
+    0x0000000000000001ull, 0x0000000000008082ull, 0x800000000000808Aull,
+    0x8000000080008000ull, 0x000000000000808Bull, 0x0000000080000001ull,
+    0x8000000080008081ull, 0x8000000000008009ull, 0x000000000000008Aull,
+    0x0000000000000088ull, 0x0000000080008009ull, 0x000000008000000Aull,
+    0x000000008000808Bull, 0x800000000000008Bull, 0x8000000000008089ull,
+    0x8000000000008003ull, 0x8000000000008002ull, 0x8000000000000080ull,
+    0x000000000000800Aull, 0x800000008000000Aull, 0x8000000080008081ull,
+    0x8000000000008080ull, 0x0000000080000001ull, 0x8000000080008008ull};
+
+__device__ __forceinline__ uint64_t rotl(uint64_t x, int r) {
+  return (x << r) | (x >> (64 - r));  // r in [1, 63]
+}
+
+// Keccak-f[1600] on the state a[x + 5y].
+__device__ __forceinline__ void keccak_f(uint64_t a[25]) {
+#pragma unroll 1
+  for (int round = 0; round < 24; ++round) {
+    const uint64_t c0 = a[0] ^ a[5] ^ a[10] ^ a[15] ^ a[20];
+    const uint64_t c1 = a[1] ^ a[6] ^ a[11] ^ a[16] ^ a[21];
+    const uint64_t c2 = a[2] ^ a[7] ^ a[12] ^ a[17] ^ a[22];
+    const uint64_t c3 = a[3] ^ a[8] ^ a[13] ^ a[18] ^ a[23];
+    const uint64_t c4 = a[4] ^ a[9] ^ a[14] ^ a[19] ^ a[24];
+    const uint64_t d0 = c4 ^ rotl(c1, 1);
+    const uint64_t d1 = c0 ^ rotl(c2, 1);
+    const uint64_t d2 = c1 ^ rotl(c3, 1);
+    const uint64_t d3 = c2 ^ rotl(c4, 1);
+    const uint64_t d4 = c3 ^ rotl(c0, 1);
+    const uint64_t b0 = a[0] ^ d0;
+    const uint64_t b1 = rotl(a[6] ^ d1, 44);
+    const uint64_t b2 = rotl(a[12] ^ d2, 43);
+    const uint64_t b3 = rotl(a[18] ^ d3, 21);
+    const uint64_t b4 = rotl(a[24] ^ d4, 14);
+    const uint64_t b5 = rotl(a[3] ^ d3, 28);
+    const uint64_t b6 = rotl(a[9] ^ d4, 20);
+    const uint64_t b7 = rotl(a[10] ^ d0, 3);
+    const uint64_t b8 = rotl(a[16] ^ d1, 45);
+    const uint64_t b9 = rotl(a[22] ^ d2, 61);
+    const uint64_t b10 = rotl(a[1] ^ d1, 1);
+    const uint64_t b11 = rotl(a[7] ^ d2, 6);
+    const uint64_t b12 = rotl(a[13] ^ d3, 25);
+    const uint64_t b13 = rotl(a[19] ^ d4, 8);
+    const uint64_t b14 = rotl(a[20] ^ d0, 18);
+    const uint64_t b15 = rotl(a[4] ^ d4, 27);
+    const uint64_t b16 = rotl(a[5] ^ d0, 36);
+    const uint64_t b17 = rotl(a[11] ^ d1, 10);
+    const uint64_t b18 = rotl(a[17] ^ d2, 15);
+    const uint64_t b19 = rotl(a[23] ^ d3, 56);
+    const uint64_t b20 = rotl(a[2] ^ d2, 62);
+    const uint64_t b21 = rotl(a[8] ^ d3, 55);
+    const uint64_t b22 = rotl(a[14] ^ d4, 39);
+    const uint64_t b23 = rotl(a[15] ^ d0, 41);
+    const uint64_t b24 = rotl(a[21] ^ d1, 2);
+    a[0] = b0 ^ (~b1 & b2);
+    a[1] = b1 ^ (~b2 & b3);
+    a[2] = b2 ^ (~b3 & b4);
+    a[3] = b3 ^ (~b4 & b0);
+    a[4] = b4 ^ (~b0 & b1);
+    a[5] = b5 ^ (~b6 & b7);
+    a[6] = b6 ^ (~b7 & b8);
+    a[7] = b7 ^ (~b8 & b9);
+    a[8] = b8 ^ (~b9 & b5);
+    a[9] = b9 ^ (~b5 & b6);
+    a[10] = b10 ^ (~b11 & b12);
+    a[11] = b11 ^ (~b12 & b13);
+    a[12] = b12 ^ (~b13 & b14);
+    a[13] = b13 ^ (~b14 & b10);
+    a[14] = b14 ^ (~b10 & b11);
+    a[15] = b15 ^ (~b16 & b17);
+    a[16] = b16 ^ (~b17 & b18);
+    a[17] = b17 ^ (~b18 & b19);
+    a[18] = b18 ^ (~b19 & b15);
+    a[19] = b19 ^ (~b15 & b16);
+    a[20] = b20 ^ (~b21 & b22);
+    a[21] = b21 ^ (~b22 & b23);
+    a[22] = b22 ^ (~b23 & b24);
+    a[23] = b23 ^ (~b24 & b20);
+    a[24] = b24 ^ (~b20 & b21);
+    a[0] ^= kRoundConstants[round];
+  }
+}
+
+__device__ __forceinline__ void write_digest(uint64_t* out, long long h,
+                                             const uint64_t a[25]) {
+  uint64_t* d = out + h * 4;
+  d[0] = a[0];
+  d[1] = a[1];
+  d[2] = a[2];
+  d[3] = a[3];
+}
+
+// Message lanes for prefix byte `pfx` followed by P LE64 words w[0..P) and
+// the SHA3 padding (0x06 after the message, 0x80 in byte 135).
+template <int P>
+__device__ __forceinline__ void absorb_block(uint64_t a[25], uint64_t pfx,
+                                             const uint64_t w[P]) {
+#pragma unroll
+  for (int i = 0; i < 25; ++i) a[i] = 0;
+  a[0] = pfx | (w[0] << 8);
+#pragma unroll
+  for (int k = 1; k < P; ++k) a[k] = (w[k - 1] >> 56) | (w[k] << 8);
+  a[P] = (w[P - 1] >> 56) | (0x06ull << 8);
+  a[16] ^= 0x8000000000000000ull;
+}
+
+template <int G>
+__global__ void __launch_bounds__(kThreads) group_leaves_kernel(
+    const uint64_t* __restrict__ vals, uint64_t* __restrict__ out,
+    long long total, int half) {
+  const long long n = 2ll * half;
+  for (long long h = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       h < total; h += (long long)gridDim.x * blockDim.x) {
+    const long long t = h / half;
+    const long long i = h - t * half;
+    const uint64_t* v = vals + t * G * n + i;
+    uint64_t w[2 * G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      w[2 * g] = v[g * n];
+      w[2 * g + 1] = v[g * n + half];
+    }
+    uint64_t a[25];
+    absorb_block<2 * G>(a, 0x00ull, w);
+    keccak_f(a);
+    write_digest(out, h, a);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) nodes_kernel(
+    const uint64_t* __restrict__ level, uint64_t* __restrict__ out,
+    long long total) {
+  for (long long h = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       h < total; h += (long long)gridDim.x * blockDim.x) {
+    const uint64_t* p = level + h * 8;
+    uint64_t w[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) w[k] = p[k];
+    uint64_t a[25];
+    absorb_block<8>(a, 0x01ull, w);
+    keccak_f(a);
+    write_digest(out, h, a);
+  }
+}
+
+static int grid_for(long long total) {
+  const long long blocks = (total + kThreads - 1) / kThreads;
+  return (int)(blocks < (1ll << 20) ? blocks : (1ll << 20));
+}
+
+// vals (trees, groups, 2 half) words -> out (trees, half, 4) digest words.
+extern "C" int keccak_group_leaves(const uint64_t* vals, uint64_t* out,
+                                   int trees, int groups, int half,
+                                   cudaStream_t stream) {
+  const long long total = (long long)trees * half;
+  if (total == 0) return 0;
+  const int grid = grid_for(total);
+  switch (groups) {
+#define LEAF_CASE(G)                                                       \
+  case G:                                                                  \
+    group_leaves_kernel<G><<<grid, kThreads, 0, stream>>>(vals, out, total, \
+                                                          half);           \
+    break;
+    LEAF_CASE(1) LEAF_CASE(2) LEAF_CASE(3) LEAF_CASE(4)
+    LEAF_CASE(5) LEAF_CASE(6) LEAF_CASE(7) LEAF_CASE(8)
+#undef LEAF_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// values (trees, 2 half) words -> out (trees, half, 4): the paired FRI leaf,
+// the group leaf with one oracle.
+extern "C" int keccak_leaves(const uint64_t* values, uint64_t* out, int trees,
+                             int half, cudaStream_t stream) {
+  return keccak_group_leaves(values, out, trees, 1, half, stream);
+}
+
+// level (count, 2, 4) digest words -> out (count, 4): one Merkle level up.
+extern "C" int keccak_nodes(const uint64_t* level, uint64_t* out, long long count,
+                            cudaStream_t stream) {
+  if (count == 0) return 0;
+  nodes_kernel<<<grid_for(count), kThreads, 0, stream>>>(level, out, count);
+  return (int)cudaGetLastError();
+}

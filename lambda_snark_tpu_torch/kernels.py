@@ -1,6 +1,7 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-Each source in ``csrc/`` (``quotient.cu``, ``ring_commit.cu``) is compiled by
+Each source in ``csrc/`` (``quotient.cu`` kernel Q, ``ring_commit.cu``
+kernel R, ``keccak.cu`` kernel K, ``ntt_goldilocks.cu`` kernel N) is compiled by
 ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface and
 loaded with ``ctypes``; nothing includes PyTorch's headers. Libraries go to
 ``build/torch_kernels/<digest>/`` beside the package, keyed by a digest of
@@ -8,8 +9,10 @@ the sources and flags, and are built at first use, one ``nvcc`` process per
 source, all started together. ``nvcc -Xptxas -v`` output (registers, shared
 memory, spills) is kept beside each library as ``lib<name>.log``.
 
-``LAUNCHES`` counts kernel launches: each wrapper adds one where it launches
-its kernel, and nowhere else.
+``LAUNCHES`` counts kernel launches per C entry (the names in
+``PROTOTYPES``): each wrapper adds, where it calls an entry, the number of
+kernels that entry launches (two for ``ntt_goldilocks_forward``, one pass
+each; one for every other entry), and nowhere else.
 """
 
 from __future__ import annotations
@@ -24,7 +27,12 @@ from typing import Dict, Iterable
 PACKAGE_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(PACKAGE_DIR), "build", "torch_kernels")
-SOURCES = {"quotient": "quotient.cu", "ring_commit": "ring_commit.cu"}
+SOURCES = {
+    "quotient": "quotient.cu",
+    "ring_commit": "ring_commit.cu",
+    "keccak": "keccak.cu",
+    "ntt_goldilocks": "ntt_goldilocks.cu",
+}
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -33,6 +41,7 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U64 = ctypes.c_uint64
+_I64 = ctypes.c_longlong
 _QUOTIENT_ARGS = [_P] * 7 + [_U64] + [_P] * 5 + [_I, _I, _P]
 PROTOTYPES = {
     "quotient": {
@@ -42,9 +51,18 @@ PROTOTYPES = {
     "ring_commit": {
         "ring_commit_goldilocks": [_P, _P, _P, _I] + [_P] * 6 + [_I, _I, _I, _P],
     },
+    "keccak": {
+        "keccak_leaves": [_P, _P, _I, _I, _P],
+        "keccak_group_leaves": [_P, _P, _I, _I, _I, _P],
+        "keccak_nodes": [_P, _P, _I64, _P],
+    },
+    "ntt_goldilocks": {
+        "ntt_goldilocks_forward": [_P] * 6 + [_I, _I, _I, _P],
+        "ntt_goldilocks_rows": [_P, _P, _P, _I, _I, _P],
+    },
 }
 
-LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+LAUNCHES: Dict[str, int] = {fn: 0 for entries in PROTOTYPES.values() for fn in entries}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

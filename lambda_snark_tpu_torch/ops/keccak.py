@@ -1,0 +1,184 @@
+"""Batched SHA3-256 Merkle hashing: kernel K (``csrc/keccak.cu``) and its
+plain PyTorch twin.
+
+Three single-block messages, the Merkle layer of the FRI proofs:
+
+- ``hash_leaves(values)``: values (T, n) words; leaf i of tree t is
+  0x00 || LE64(v[t, i]) || LE64(v[t, i + n/2]) (a FRI fold layer);
+- ``hash_leaves_flex(vals)``: vals (T, G, n) words, G <= 8; leaf i of tree t
+  is 0x00 || concat_g LE64(v[t, g, i]) || LE64(v[t, g, i + n/2]) (the
+  interleaved input-oracle group);
+- ``hash_nodes(level)``: level (T, rows, 4) digests -> (T, rows/2, 4),
+  node j = 0x01 || digest[2j] || digest[2j+1].
+
+A digest is 4 LE64 words (int64 bit patterns), so ``to_u64(d).view(uint8)``
+is its 32 bytes. Kernel K replaces the TPU kernel
+``keccak_pallas._hash_call`` (ops/keccak_pallas.py:242) behind
+``hash_leaves`` / ``hash_leaves_flex`` / ``hash_nodes``. The wrappers launch
+it for CUDA tensors and run the ``*_plain`` twins for CPU tensors.
+
+The twin keeps each 64-bit lane as one int64 tensor: ``<<`` wraps mod 2^64,
+and the arithmetic ``>>`` is masked to the bits a logical shift would give.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import torch
+
+from .. import kernels
+
+#: Oracles per interleaved group leaf: 8 give 129-byte messages, the most
+#: that fit one 136-byte SHA3-256 rate block.
+MAX_GROUP_ORACLES = 8
+
+_ROT_XY = [
+    [0, 36, 3, 41, 18],
+    [1, 44, 10, 45, 2],
+    [62, 6, 43, 15, 61],
+    [28, 55, 25, 21, 56],
+    [27, 20, 39, 8, 14],
+]
+_ROT = [_ROT_XY[i % 5][i // 5] for i in range(25)]  # lane i = x + 5y
+_PI_SRC = [((i % 5) + 3 * (i // 5)) % 5 + 5 * (i % 5) for i in range(25)]
+_CHI_1 = [(i % 5 + 1) % 5 + 5 * (i // 5) for i in range(25)]
+_CHI_2 = [(i % 5 + 2) % 5 + 5 * (i // 5) for i in range(25)]
+_RC = [
+    0x0000000000000001, 0x0000000000008082, 0x800000000000808A,
+    0x8000000080008000, 0x000000000000808B, 0x0000000080000001,
+    0x8000000080008081, 0x8000000000008009, 0x000000000000008A,
+    0x0000000000000088, 0x0000000080008009, 0x000000008000000A,
+    0x000000008000808B, 0x800000000000008B, 0x8000000000008089,
+    0x8000000000008003, 0x8000000000008002, 0x8000000000000080,
+    0x000000000000800A, 0x800000008000000A, 0x8000000080008081,
+    0x8000000000008080, 0x0000000080000001, 0x8000000080008008,
+]
+
+
+def _signed(v: int) -> int:
+    """A u64 constant as the int64 with the same bits."""
+    return v - (1 << 64) if v >= 1 << 63 else v
+
+
+def _shr(x: torch.Tensor, r: int) -> torch.Tensor:
+    """Logical right shift of int64 bit patterns."""
+    return (x >> r) & ((1 << (64 - r)) - 1)
+
+
+def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    return x if r == 0 else (x << r) | _shr(x, 64 - r)
+
+
+def keccak_f_plain(a: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Keccak-f[1600] on 25 int64 lane tensors a[x + 5y]."""
+    for rc in _RC:
+        c = [a[x] ^ a[x + 5] ^ a[x + 10] ^ a[x + 15] ^ a[x + 20] for x in range(5)]
+        d = [c[(x + 4) % 5] ^ _rotl(c[(x + 1) % 5], 1) for x in range(5)]
+        b = [_rotl(a[s] ^ d[s % 5], _ROT[s]) for s in _PI_SRC]
+        a = [b[i] ^ (~b[_CHI_1[i]] & b[_CHI_2[i]]) for i in range(25)]
+        a[0] = a[0] ^ _signed(rc)
+    return a
+
+
+def _digest_plain(prefix: int, words: List[torch.Tensor]) -> torch.Tensor:
+    """SHA3-256 of prefix || LE64(words...) (one rate block) -> (..., 4)."""
+    p = len(words)
+    zero = torch.zeros_like(words[0])
+    a = [zero] * 25
+    a[0] = (words[0] << 8) | prefix
+    for k in range(1, p):
+        a[k] = _shr(words[k - 1], 56) | (words[k] << 8)
+    a[p] = _shr(words[p - 1], 56) | (0x06 << 8)
+    a[16] = a[16] ^ _signed(0x80 << 56)
+    return torch.stack(keccak_f_plain(a)[:4], dim=-1)
+
+
+def hash_leaves_flex_plain(vals: torch.Tensor) -> torch.Tensor:
+    half = vals.shape[-1] // 2
+    words = []
+    for g in range(vals.shape[1]):
+        words += [vals[:, g, :half], vals[:, g, half:]]
+    return _digest_plain(0x00, words)
+
+
+def hash_leaves_plain(values: torch.Tensor) -> torch.Tensor:
+    return hash_leaves_flex_plain(values[:, None, :])
+
+
+def hash_nodes_plain(level: torch.Tensor) -> torch.Tensor:
+    pairs = level.reshape(level.shape[0], level.shape[1] // 2, 8)
+    return _digest_plain(0x01, list(pairs.unbind(-1)))
+
+
+def _check(x: torch.Tensor, dims: int, what: str) -> None:
+    if x.dtype != torch.int64 or x.dim() != dims:
+        raise ValueError(f"{what}: expected {dims}-d int64 words, got {x.dtype} {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{what}: input must be contiguous")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+
+
+def _leaves(vals: torch.Tensor, paired: bool) -> torch.Tensor:
+    t, g, n = vals.shape
+    if not 1 <= g <= MAX_GROUP_ORACLES:
+        raise ValueError(f"group of {g} oracles: 1..{MAX_GROUP_ORACLES} fit one Keccak block")
+    if n < 2 or n % 2:
+        raise ValueError(f"codeword length {n} must be even and >= 2")
+    if vals.device.type == "cpu":
+        return hash_leaves_flex_plain(vals)
+    out = torch.empty((t, n // 2, 4), dtype=torch.int64, device=vals.device)
+    if out.numel() == 0:
+        return out
+    lib = kernels.load("keccak")
+    with torch.cuda.device(vals.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if paired:
+            entry, rc = "keccak_leaves", lib.keccak_leaves(
+                vals.data_ptr(), out.data_ptr(), t, n // 2, stream)
+        else:
+            entry, rc = "keccak_group_leaves", lib.keccak_group_leaves(
+                vals.data_ptr(), out.data_ptr(), t, g, n // 2, stream)
+    kernels.check(rc, f"kernel K ({entry})")
+    kernels.LAUNCHES[entry] += 1
+    return out
+
+
+def hash_leaves_flex(vals: torch.Tensor) -> torch.Tensor:
+    """Group-leaf digests (T, n/2, 4) of vals (T, G, n) words, G <= 8."""
+    _check(vals, 3, "hash_leaves_flex")
+    return _leaves(vals, paired=False)
+
+
+def hash_leaves(values: torch.Tensor) -> torch.Tensor:
+    """Paired-leaf digests (T, n/2, 4) of values (T, n) words."""
+    _check(values, 2, "hash_leaves")
+    return _leaves(values[:, None, :], paired=True)
+
+
+def hash_nodes(level: torch.Tensor) -> torch.Tensor:
+    """One Merkle level up: (T, rows, 4) digests -> (T, rows/2, 4)."""
+    _check(level, 3, "hash_nodes")
+    t, rows, four = level.shape
+    if four != 4 or rows < 2 or rows % 2:
+        raise ValueError(f"hash_nodes: expected (T, even rows, 4), got {tuple(level.shape)}")
+    if level.device.type == "cpu":
+        return hash_nodes_plain(level)
+    out = torch.empty((t, rows // 2, 4), dtype=torch.int64, device=level.device)
+    fn = kernels.load("keccak").keccak_nodes
+    with torch.cuda.device(level.device):
+        rc = fn(level.data_ptr(), out.data_ptr(), t * (rows // 2),
+                torch.cuda.current_stream().cuda_stream)
+    kernels.check(rc, "kernel K (keccak_nodes)")
+    kernels.LAUNCHES["keccak_nodes"] += 1
+    return out
+
+
+def merkle_levels(leaves: torch.Tensor) -> List[torch.Tensor]:
+    """Leaf digests (T, half, 4) -> every level up to the root (T, 1, 4),
+    one ``hash_nodes`` launch per level."""
+    levels = [leaves]
+    while levels[-1].shape[1] > 1:
+        levels.append(hash_nodes(levels[-1]))
+    return levels

@@ -92,11 +92,12 @@ def quotient(plan: QuotientPlan, a, b, c):
     if log_m > _MAX_LOG_M:
         raise ValueError(f"kernel Q takes m <= 2^{_MAX_LOG_M}, got m = {plan.m}")
     if plan.q == modarith.Q45:
-        fn = kernels.load("quotient").quotient_q45
+        entry = "quotient_q45"
     elif plan.q == modarith.GOLDILOCKS:
-        fn = kernels.load("quotient").quotient_goldilocks
+        entry = "quotient_goldilocks"
     else:
         raise ValueError(f"kernel Q has no reduction for q = {plan.q}")
+    fn = getattr(kernels.load("quotient"), entry)
     rows = a.shape[0]
     outs = [torch.empty_like(a) for _ in range(4)]
     valid = torch.empty(rows, dtype=torch.int32, device=a.device)
@@ -109,5 +110,5 @@ def quotient(plan: QuotientPlan, a, b, c):
                 plan.twist.data_ptr(), plan.untwist.data_ptr(), plan.ntt.inv_m,
                 *(o.data_ptr() for o in outs), valid.data_ptr(), rows, log_m, stream)
     kernels.check(rc, "kernel Q (quotient)")
-    kernels.LAUNCHES["quotient"] += 1
+    kernels.LAUNCHES[entry] += 1
     return (*outs, valid.bool())

@@ -101,5 +101,5 @@ def ring_commit(plan: RingCommitPlan, s, e, msg):
                 plan.ntt.psi_inv_n.data_ptr(), plan.ntt.tw.data_ptr(),
                 plan.ntt.tw_inv.data_ptr(), out.data_ptr(), rows, plan.k, log_n, stream)
     kernels.check(rc, "kernel R (ring commit)")
-    kernels.LAUNCHES["ring_commit"] += 1
+    kernels.LAUNCHES["ring_commit_goldilocks"] += 1
     return out

@@ -1,4 +1,6 @@
-"""Counter-mode discrete Gaussian sampling, draw for draw with ``jax.random``.
+"""Discrete Gaussian sampling in torch ops, draw for draw with the JAX
+package: counter-mode threefry (``jax.random``) and per-seed ChaCha20
+streams (``chacha20_blocks`` / ``sample_chacha_signed``, below).
 
 The counterpart of ``sample_planes_global`` and ``magnitudes_from_bits`` in
 the JAX package's ``ops/sampler_jax.py``. The draw for (stream j, statement
@@ -99,3 +101,66 @@ def sample_signed(key: Key, streams: Sequence[int], b_global: torch.Tensor,
     flip = ((sign & 1) == 1) & (mags != 0)
     return torch.where(flip, -mags, mags)
 
+
+
+# --- ChaCha20 streams (the host commitment's randomness) ----------------------
+#
+# The counterpart of ``sampler_jax.chacha20_blocks_in_graph`` and
+# ``sample_chacha_planes_in_graph``: the per-seed ChaCha20 streams of
+# ``lwe.randomness_batch``, generated on the device from the 32-byte keys.
+
+_CHACHA_CONSTS = (0x61707865, 0x3320646E, 0x79622D32, 0x6B206574)
+
+
+def _rotl32(v: torch.Tensor, r: int) -> torch.Tensor:
+    return ((v << r) | (v >> (32 - r))) & M32
+
+
+def _quarter(x, a: int, b: int, c: int, d: int) -> None:
+    x[a] = (x[a] + x[b]) & M32
+    x[d] = _rotl32(x[d] ^ x[a], 16)
+    x[c] = (x[c] + x[d]) & M32
+    x[b] = _rotl32(x[b] ^ x[c], 12)
+    x[a] = (x[a] + x[b]) & M32
+    x[d] = _rotl32(x[d] ^ x[a], 8)
+    x[c] = (x[c] + x[d]) & M32
+    x[b] = _rotl32(x[b] ^ x[c], 7)
+
+
+def chacha20_blocks(key_words: torch.Tensor, nblocks: int) -> torch.Tensor:
+    """ChaCha20 keystream blocks (DJB variant, zero nonce, counters
+    0..nblocks-1) for keys (S, 8) of 32-bit words in int64: (S, nblocks, 16),
+    row (s, b) equal to ``utils.chacha.chacha20_block(key_s, b, [0, 0])``."""
+    s = key_words.shape[0]
+    dev = key_words.device
+    zero = torch.zeros((s, nblocks), dtype=torch.int64, device=dev)
+    state = [zero + c for c in _CHACHA_CONSTS]
+    state += [zero + key_words[:, i, None] for i in range(8)]
+    state += [zero + torch.arange(nblocks, dtype=torch.int64, device=dev), zero, zero, zero]
+    x = list(state)
+    for _ in range(10):
+        _quarter(x, 0, 4, 8, 12)
+        _quarter(x, 1, 5, 9, 13)
+        _quarter(x, 2, 6, 10, 14)
+        _quarter(x, 3, 7, 11, 15)
+        _quarter(x, 0, 5, 10, 15)
+        _quarter(x, 1, 6, 11, 12)
+        _quarter(x, 2, 7, 8, 13)
+        _quarter(x, 3, 4, 9, 14)
+    return torch.stack([(xi + si) & M32 for xi, si in zip(x, state)], dim=-1)
+
+
+def sample_chacha_signed(key_words: torch.Tensor, k: int, n: int,
+                         cdf: torch.Tensor) -> torch.Tensor:
+    """Signed Gaussian draws (S, k + 1, n) int32 for keys (S, 8): per
+    statement one ChaCha20 stream gives k + 1 rows of 2n u64 draws, value
+    and sign interleaved (value j = words 4j, 4j+1; sign = word 4j+2 bit 0);
+    rows 0..k-1 are s_1..s_k and row k is e, as ``lwe.randomness_batch``."""
+    s = key_words.shape[0]
+    total_words = (k + 1) * 4 * n
+    if total_words % 16:
+        raise ValueError(f"(k + 1) 4 n = {total_words} must be a multiple of 16")
+    w = chacha20_blocks(key_words, total_words // 16).reshape(s, k + 1, 4 * n)
+    mags = magnitudes_from_bits(w[..., 1::4], w[..., 0::4], cdf.to(w.device))
+    flip = ((w[..., 2::4] & 1) == 1) & (mags != 0)
+    return torch.where(flip, -mags, mags)

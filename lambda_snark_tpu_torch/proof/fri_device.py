@@ -1,0 +1,344 @@
+"""Device-resident FRI proving over Goldilocks (the port's counterpart of
+the JAX package's ``proof/fri_device.py``, on its per-layer host-transcript
+branch, ``DEVICE_TRANSCRIPT = False``).
+
+- codewords stay on the device as (S, n) or (S, K, n) int64 words;
+- every Merkle forest is built there by kernel K (``ops.keccak``), leaf level
+  to root; the host sees 32-byte roots;
+- each fold layer is a handful of torch ops with a cached 1/x table;
+- the DEEP combination runs in torch ops (Montgomery batch inversion, with
+  one host inverse per row);
+- the final polynomials come from kernel N (the inverse transform of the
+  residual codewords) on the device;
+- the query openings (values and authentication paths of every layer) are
+  gathered on the device and pulled in one transfer per batch.
+
+Transcripts stay on the host (``proof.fri.FriTranscript``); the per-layer
+roots absorb there, in the JAX order. Proof bytes equal the JAX package's.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..core import field
+from ..core.errors import DomainError
+from ..ops import keccak, modarith
+from ..ops.ntt_large import MAX_LEAF_LEN, NttLargePlan, dft_plan, dft_rows, ntt_forward_large
+from .fri import (
+    FriParams,
+    FriProof,
+    FriQuery,
+    FriTranscript,
+    GroupOpening,
+    LayerOpening,
+    _effective_final_len,
+    _gl_powers,
+)
+
+P = modarith.GOLDILOCKS
+
+
+def _words(values, device) -> torch.Tensor:
+    return modarith.to_words(np.asarray(values, dtype=np.uint64), device)
+
+
+def digest_bytes(level: torch.Tensor) -> np.ndarray:
+    """(..., 4) digest words (any device) -> uint8 (..., 32) on the host."""
+    return modarith.to_u64(level).view(np.uint8)
+
+
+@dataclasses.dataclass(eq=False)
+class DevForest:
+    """T Merkle trees with every level on the device: ``levels[l]`` is
+    (T, rows_l, 4) digest words, leaf level first, root level (T, 1, 4)
+    last."""
+
+    levels: List[torch.Tensor]
+    roots: List[bytes]
+    num_leaves: int
+
+    @property
+    def n_trees(self) -> int:
+        return len(self.roots)
+
+
+def forest_from_leaves(leaves: torch.Tensor) -> DevForest:
+    levels = keccak.merkle_levels(leaves)
+    roots = [bytes(r) for r in digest_bytes(levels[-1][:, 0])]
+    return DevForest(levels=levels, roots=roots, num_leaves=leaves.shape[1])
+
+
+def _check_size(n: int) -> None:
+    if n < 4 or n & (n - 1):
+        raise DomainError(f"codeword size must be a power of two >= 4, got {n}")
+
+
+def commit_planes_dev(values: torch.Tensor) -> DevForest:
+    """(T, n) codewords -> T trees; leaf i pairs values (i, i + n/2)."""
+    _check_size(values.shape[-1])
+    return forest_from_leaves(keccak.hash_leaves(values))
+
+
+def commit_planes_dev_groups(vals: torch.Tensor) -> DevForest:
+    """(S, K, n) codewords -> S interleaved-group trees; leaf i holds every
+    oracle's pair (i, i + n/2)."""
+    _check_size(vals.shape[-1])
+    return forest_from_leaves(keccak.hash_leaves_flex(vals))
+
+
+# --- fold -----------------------------------------------------------------------
+
+_TABLE_CACHE: dict = {}
+
+
+def _layer_inv_tables(n0: int, offset: int, omega: int, device) -> List[torch.Tensor]:
+    """Per fold layer k, the 1/x table inv(off_k) inv(om_k)^i (i < n_k / 2)
+    of the coset offset^(2^k) <omega^(2^k)>."""
+    key = (n0, offset, omega, str(device))
+    if key not in _TABLE_CACHE:
+        tabs = []
+        off, om, n = offset, omega, n0
+        while n >= 4:
+            inv_xs = _gl_powers(field.mod_inverse(om, P), n // 2,
+                                scale=field.mod_inverse(off, P))
+            tabs.append(_words(inv_xs, device))
+            off, om, n = off * off % P, om * om % P, n // 2
+        _TABLE_CACHE[key] = tabs
+    return _TABLE_CACHE[key]
+
+
+_INV2 = field.mod_inverse(2, P)
+
+
+def _fold(cur: torch.Tensor, inv_x: torch.Tensor, cs: torch.Tensor) -> torch.Tensor:
+    """(S, n) -> (S, n/2): v' = ((lo + hi) + c (lo - hi) / x) / 2."""
+    half = cur.shape[1] // 2
+    lo, hi = cur[:, :half], cur[:, half:]
+    t = modarith.mul_mod(modarith.mul_mod(cs[:, None], modarith.sub_mod(lo, hi, P), P), inv_x, P)
+    return modarith.mul_mod(modarith.add_mod(modarith.add_mod(lo, hi, P), t, P), _INV2, P)
+
+
+# --- DEEP combination -------------------------------------------------------------
+
+
+def _batch_inverse(x: torch.Tensor) -> torch.Tensor:
+    """Row-wise inverses of (S, n) nonzero words: prefix and suffix products
+    by log-doubling, one host inverse per row."""
+    s, n = x.shape
+    pre, suf = x.clone(), x.clone()
+    shift = 1
+    while shift < n:
+        pre[:, shift:] = modarith.mul_mod(pre[:, shift:], pre[:, :-shift], P)
+        suf[:, :-shift] = modarith.mul_mod(suf[:, :-shift], suf[:, shift:], P)
+        shift <<= 1
+    totals = modarith.to_u64(pre[:, -1])
+    if not totals.all():
+        raise DomainError("batch_inverse: zero element (challenge hit the domain)")
+    total_inv = _words([field.mod_inverse(int(t), P) for t in totals], x.device)
+    one = torch.ones((s, 1), dtype=torch.int64, device=x.device)
+    left = torch.cat([one, pre[:, :-1]], dim=1)  # product of x[:i]
+    right = torch.cat([suf[:, 1:], one], dim=1)  # product of x[i+1:]
+    return modarith.mul_mod(modarith.mul_mod(left, right, P), total_inv[:, None], P)
+
+
+_XS_CACHE: dict = {}
+
+
+def _coset_points(n0: int, offset: int, omega: int, device) -> torch.Tensor:
+    key = (n0, offset, omega, str(device))
+    if key not in _XS_CACHE:
+        xs = _gl_powers(omega, n0, scale=offset)
+        _XS_CACHE[key] = _words(xs, device)
+    return _XS_CACHE[key]
+
+
+def deep_combine_device(input_vals: torch.Tensor, alphas, betas, lams, evals,
+                        offset: int, omega: int) -> torch.Tensor:
+    """The batched DEEP quotient, (S, K, n0) codewords -> g (S, n0):
+
+        g = sum_k lam^(2k) (cw_k - ev_a_k) / (x - alpha)
+                  + lam^(2k+1) (cw_k - ev_b_k) / (x - beta)
+
+    alphas/betas/lams (S,) and evals (S, 2K) (the alpha block, then beta)
+    are host uint64; the lambda ladder is the JAX order (lam_pow_0 = 1;
+    lam2 = lam_pow lam; next lam_pow = lam2 lam)."""
+    s, k_in, n0 = input_vals.shape
+    dev = input_vals.device
+    xs = _coset_points(n0, offset, omega, dev)
+    lam_a = np.empty((s, k_in), dtype=np.uint64)
+    lam_b = np.empty((s, k_in), dtype=np.uint64)
+    for si in range(s):
+        lam, lam_pow = int(lams[si]), 1
+        for k in range(k_in):
+            lam2 = lam_pow * lam % P
+            lam_a[si, k], lam_b[si, k] = lam_pow, lam2
+            lam_pow = lam2 * lam % P
+    points = _words(np.stack([alphas, betas]), dev)  # (2, S)
+    inv = _batch_inverse(modarith.sub_mod(xs[None, None, :], points[:, :, None], P)
+                         .reshape(2 * s, n0)).reshape(2, s, 1, n0)
+    ev = _words(evals, dev).reshape(s, 2, k_in).transpose(0, 1)[..., None]  # (2, S, K, 1)
+    lam_t = _words(np.stack([lam_a, lam_b]), dev)[..., None]  # (2, S, K, 1)
+    terms = modarith.mul_mod(
+        modarith.mul_mod(lam_t, modarith.sub_mod(input_vals[None], ev, P), P), inv, P)
+    g = terms[0, :, 0]
+    for j in range(2):
+        for k in range(k_in):
+            if j or k:
+                g = modarith.add_mod(g, terms[j, :, k], P)
+    return g
+
+
+# --- the prover -------------------------------------------------------------------
+
+
+def _gather_pull(parts: List[torch.Tensor]) -> List[np.ndarray]:
+    """One device-to-host transfer for every gathered tensor."""
+    flat = modarith.to_u64(torch.cat([p.reshape(-1) for p in parts]))
+    out, off = [], 0
+    for p in parts:
+        out.append(flat[off: off + p.numel()].reshape(tuple(p.shape)))
+        off += p.numel()
+    return out
+
+
+_FINAL_CACHE: dict = {}
+
+
+def _final_tables(n: int, off: int, om: int, device):
+    """The n-point transform with root om^-1 (kernel N's leaf up to
+    MAX_LEAF_LEN points, its four-step above) and the untwist off^-i / n."""
+    key = (n, off, om, str(device))
+    if key not in _FINAL_CACHE:
+        om_inv = field.mod_inverse(om, P)
+        if n <= MAX_LEAF_LEN:
+            transform = functools.partial(dft_rows, dft_plan(n, om_inv, device))
+        else:
+            transform = functools.partial(ntt_forward_large,
+                                          NttLargePlan.create(n, om_inv, device))
+        untwist = _gl_powers(field.mod_inverse(off, P), n, scale=field.mod_inverse(n, P))
+        _FINAL_CACHE[key] = (transform, _words(untwist, device))
+    return _FINAL_CACHE[key]
+
+
+def _final_polynomial(cur: torch.Tensor, off: int, om: int, final_len: int) -> List[List[int]]:
+    """Per row of the residual codewords (S, n) on off <om>: the inverse
+    transform, untwisted by off^-i, pulled to the host; every coefficient
+    from ``final_len`` on must vanish."""
+    transform, untwist = _final_tables(cur.shape[1], off, om, cur.device)
+    fin = modarith.to_u64(modarith.mul_mod(transform(cur.contiguous()), untwist, P))
+    if fin[:, final_len:].any():
+        raise DomainError("FRI final polynomial exceeds its degree bound")
+    return [[int(v) for v in row[:final_len]] for row in fin]
+
+
+def fri_commit_layers(g: torch.Tensor, offset: int, omega: int, q: int,
+                      params: FriParams, trs: Sequence[FriTranscript]):
+    """The commit phase of FRI on g (S, n0): fold with each transcript's
+    challenge, commit every layer above the final length (kernel K) and
+    absorb its roots, then absorb the final polynomials and draw the query
+    indices. Returns (committed [(values (S, n), forest)], finals,
+    indices (S, Q) on the device)."""
+    if q != P:
+        raise DomainError("device FRI is implemented for the Goldilocks modulus")
+    params.validate()
+    s, n0 = g.shape
+    dev = g.device
+    d_bound = n0 >> params.log_blowup
+    final_len = _effective_final_len(d_bound, params.final_len)
+    tabs = _layer_inv_tables(n0, offset, omega, dev)
+    committed: List[Tuple[torch.Tensor, DevForest]] = []
+    cur = g
+    off, om, d = offset, omega, d_bound
+    layer = 0
+    while True:
+        cs = _words([tr.challenge_field(q, b"fri-fold") for tr in trs], dev)
+        cur = _fold(cur, tabs[layer], cs)
+        layer += 1
+        off, om, d = off * off % q, om * om % q, d >> 1
+        if d <= final_len:
+            break
+        forest = commit_planes_dev(cur)
+        committed.append((cur, forest))
+        for si in range(s):
+            trs[si].absorb(b"fri-layer-root", forest.roots[si])
+    finals = _final_polynomial(cur, off, om, final_len)
+    for tr, fin in zip(trs, finals):
+        tr.absorb_words(b"fri-final", fin)
+    idx = torch.tensor([tr.challenge_indices(n0 // 2, params.num_queries, b"fri-query")
+                        for tr in trs], dtype=torch.int64, device=dev)
+    return committed, finals, idx
+
+
+def _take_siblings(forest: DevForest, pos: torch.Tensor) -> List[torch.Tensor]:
+    """The path of every leaf in ``pos`` (S, Q): one (S, Q, 4) tensor per
+    level below the root."""
+    return [lvl.gather(1, ((pos >> i) ^ 1)[:, :, None].expand(-1, -1, 4))
+            for i, lvl in enumerate(forest.levels[:-1])]
+
+
+def fri_open(input_vals: torch.Tensor, input_forest: DevForest, committed, finals,
+             idx: torch.Tensor) -> List[FriProof]:
+    """The query phase: gather every opened value and path on the device,
+    pull them in one transfer, and assemble one FriProof per statement."""
+    s, k_in, n0 = input_vals.shape
+    nq = idx.shape[1]
+    idx_k = idx[:, None, :].expand(-1, k_in, -1)
+    parts = [input_vals.gather(2, idx_k), input_vals.gather(2, idx_k + n0 // 2)]
+    parts += _take_siblings(input_forest, idx)
+    depths = [len(input_forest.levels) - 1]
+    pos = idx
+    for values, forest in committed:
+        half = forest.num_leaves
+        pos = pos % half
+        parts += [values.gather(1, pos), values.gather(1, pos + half)]
+        parts += _take_siblings(forest, pos)
+        depths.append(len(forest.levels) - 1)
+    pulled = iter(_gather_pull(parts))
+
+    def path_bytes(depth: int) -> np.ndarray:  # (S, Q, depth * 32)
+        levels = [next(pulled) for _ in range(depth)]
+        return np.stack(levels, axis=2).view(np.uint8).reshape(s, nq, 32 * depth)
+
+    in_lo, in_hi = next(pulled), next(pulled)  # (S, K, Q)
+    in_path = path_bytes(depths[0])
+    layers = []
+    for depth in depths[1:]:
+        v_lo, v_hi = next(pulled), next(pulled)
+        layers.append((v_lo, v_hi, path_bytes(depth)))
+
+    proofs: List[FriProof] = []
+    for si in range(s):
+        queries = []
+        for qi in range(nq):
+            vals = tuple(int(v) for k in range(k_in)
+                         for v in (in_lo[si, k, qi], in_hi[si, k, qi]))
+            layer_ops = tuple(
+                LayerOpening(int(v_lo[si, qi]), int(v_hi[si, qi]), path[si, qi].tobytes())
+                for v_lo, v_hi, path in layers)
+            queries.append(FriQuery((GroupOpening(vals, in_path[si, qi].tobytes()),),
+                                    layer_ops))
+        roots = tuple(forest.roots[si] for _v, forest in committed)
+        proofs.append(FriProof(roots, tuple(finals[si]), tuple(queries)))
+    return proofs
+
+
+def fri_prove_device(g: torch.Tensor, input_vals: torch.Tensor, input_forest: DevForest,
+                     offset: int, omega: int, q: int, params: FriParams,
+                     trs: Sequence[FriTranscript]) -> List[FriProof]:
+    """One FriProof per statement, byte-identical to the JAX prover.
+
+    g (S, n0): combined DEEP quotients; input_vals (S, K, n0): the committed
+    input codewords, one interleaved-group tree per statement in
+    ``input_forest``; trs: one transcript per statement, seeded with the
+    roots and evaluations already."""
+    s, _k, n0 = input_vals.shape
+    if tuple(g.shape) != (s, n0) or input_forest.n_trees != s:
+        raise ValueError("g, the input codewords and the forest disagree on shape")
+    return fri_open(input_vals, input_forest,
+                    *fri_commit_layers(g, offset, omega, q, params, trs))

@@ -1,0 +1,276 @@
+"""Succinct R1CS proofs with FRI-bound openings (wire kind 7, v4).
+
+The port's copy of the JAX package's ``proof/succinct.py`` for the non-ZK
+kind 7: the proof container and its bytes, the wire-v4 challenge binding
+(SHA3 of the commitment words, then the circuit digest, then the input
+root), the shared transcript seeding, the prover as the batch of one, and a
+host verifier (``hashlib`` and Python ints, no native library).
+
+The verifier checks the quotient identity Q(x) Z_H(x) = A(x) B(x) - C(x) at
+the dual Fiat-Shamir challenges and binds every claimed evaluation to its
+committed polynomial through FRI on the DEEP quotient
+G = sum_k lambda^t (f_k(X) - v_k) / (X - point).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import struct
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ..commit.lwe import Commitment, LweContext
+from ..core import field
+from ..core.errors import DomainError, SerializationError
+from ..r1cs.domain import ROOTS
+from ..r1cs.r1cs import R1CS
+from ..transcript.challenge import Challenge
+from ..utils.artifacts import circuit_digest
+from .fri import (
+    FriParams,
+    FriProof,
+    FriTranscript,
+    coset_offset,
+    fri_supported,
+    fri_verify,
+    max_codeword_size,
+    root_of_order,
+)
+
+_MAGIC = b"LSNKTPU1"
+KIND_R1CS_SUCCINCT = 7
+WIRE_VERSION = 4
+
+#: Verifier-side cap on the prover-chosen mask length.
+_MASK_LEN_CAP = 4096
+
+
+def commitment_digest_words(commitment: Commitment) -> np.ndarray:
+    """SHA3-256("LSNK-commitment-v4" || LE64 words) as 4 LE64 words."""
+    words = np.ascontiguousarray(np.asarray(commitment.words, dtype=np.uint64)).astype("<u8")
+    dig = hashlib.sha3_256(b"LSNK-commitment-v4" + words.tobytes()).digest()
+    return np.frombuffer(dig, dtype="<u8")
+
+
+def statement_binding_words(commitment: Commitment, r1cs: R1CS) -> np.ndarray:
+    """The v4 challenge prefix: commitment digest || circuit digest (8 words)."""
+    cdig = bytes.fromhex(circuit_digest(r1cs))
+    return np.concatenate([commitment_digest_words(commitment),
+                           np.frombuffer(cdig, dtype="<u8")])
+
+
+def _check_wire_version(data: bytes, off: int) -> int:
+    if off >= len(data):
+        raise SerializationError("truncated proof header")
+    ver = data[off]
+    if ver != WIRE_VERSION:
+        raise SerializationError(
+            f"unsupported succinct wire version {ver} (expected "
+            f"{WIRE_VERSION}; odd values indicate a pre-0.7 blob)")
+    return off + 1
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << (n - 1).bit_length() if n > 1 else 1
+
+
+def _degree_bound(m: int, mask_len: int) -> int:
+    """Smallest power of two covering every committed polynomial."""
+    return _next_pow2(m + 2 * mask_len) if mask_len else _next_pow2(m)
+
+
+def _roots_to_words(roots: Sequence[bytes]) -> List[int]:
+    return [int.from_bytes(root[i: i + 8], "little") for root in roots for i in range(0, 32, 8)]
+
+
+@dataclasses.dataclass(frozen=True)
+class SuccinctProofR1CS:
+    """R1CS proof with FRI-bound openings (wire kind 7); ``mask_len > 0``
+    marks the zero-knowledge variant, which this package verifies but does
+    not prove."""
+
+    commitment_q: Commitment
+    input_root: bytes
+    challenge_alpha: Challenge
+    challenge_beta: Challenge
+    a_alpha: int
+    b_alpha: int
+    c_alpha: int
+    q_alpha: int
+    a_beta: int
+    b_beta: int
+    c_beta: int
+    q_beta: int
+    fri: FriProof
+    m: int
+    mask_len: int
+    log_blowup: int
+    num_queries: int
+    final_len: int
+    modulus: int
+
+    @property
+    def fri_params(self) -> FriParams:
+        return FriParams(log_blowup=self.log_blowup, num_queries=self.num_queries,
+                         final_len=self.final_len)
+
+    def _evals(self) -> Tuple[int, ...]:
+        return (self.a_alpha, self.b_alpha, self.c_alpha, self.q_alpha,
+                self.a_beta, self.b_beta, self.c_beta, self.q_beta)
+
+    def to_bytes(self) -> bytes:
+        out = _MAGIC + bytes([KIND_R1CS_SUCCINCT, WIRE_VERSION])
+        out += struct.pack("<QQIBHH", self.modulus, self.m, self.mask_len,
+                           self.log_blowup, self.num_queries, self.final_len)
+        out += struct.pack("<Q", len(self.commitment_q.words)) + self.commitment_q.to_bytes()
+        out += self.input_root
+        out += self.challenge_alpha.to_bytes() + self.challenge_beta.to_bytes()
+        out += struct.pack("<8Q", *self._evals())
+        return out + self.fri.to_bytes()
+
+    @staticmethod
+    def from_bytes(data: bytes) -> "SuccinctProofR1CS":
+        if len(data) < 9 or data[:8] != _MAGIC or data[8] != KIND_R1CS_SUCCINCT:
+            raise SerializationError("bad succinct-proof header")
+        off = _check_wire_version(data, 9)
+        if off + 25 > len(data):
+            raise SerializationError("truncated succinct proof header")
+        modulus, m, mask_len, log_blowup, num_queries, final_len = struct.unpack_from(
+            "<QQIBHH", data, off)
+        off += 25
+        if off + 8 > len(data):
+            raise SerializationError("truncated commitment length")
+        (n_words,) = struct.unpack_from("<Q", data, off)
+        off += 8
+        if n_words > (1 << 24):
+            raise SerializationError("unreasonable commitment length")
+        if off + 8 * n_words > len(data):
+            raise SerializationError("truncated commitment words")
+        words = np.frombuffer(data, dtype="<u8", count=n_words, offset=off).astype(np.uint64)
+        off += 8 * n_words
+        if off + 32 > len(data):
+            raise SerializationError("truncated input root")
+        input_root = data[off: off + 32]
+        off += 32
+        if off + 80 > len(data):
+            raise SerializationError("truncated challenges")
+        ch_a = Challenge.from_bytes(data[off: off + 40])
+        ch_b = Challenge.from_bytes(data[off + 40: off + 80])
+        off += 80
+        if off + 64 > len(data):
+            raise SerializationError("truncated evaluations")
+        evals = struct.unpack_from("<8Q", data, off)
+        off += 64
+        fri_proof, off = FriProof.read(data, off)
+        return SuccinctProofR1CS(
+            Commitment(words), input_root, ch_a, ch_b, *evals, fri=fri_proof, m=m,
+            mask_len=mask_len, log_blowup=log_blowup, num_queries=num_queries,
+            final_len=final_len, modulus=modulus)
+
+
+def _seed_fri_transcript(q: int, m: int, mask_len: int, params: FriParams, d_bound: int,
+                         input_roots: Sequence[bytes], alpha: int, beta: int,
+                         evals: Sequence[int]) -> FriTranscript:
+    tr = FriTranscript()
+    tr.absorb_words(b"succinct-params", [q, m, mask_len, params.log_blowup,
+                                         params.num_queries, params.final_len, d_bound])
+    for root in input_roots:
+        tr.absorb(b"input-root", root)
+    tr.absorb_words(b"points", [alpha, beta])
+    tr.absorb_words(b"evals", list(evals))
+    return tr
+
+
+def _check_instance(r1cs: R1CS, params: FriParams, mask_len: int) -> Tuple[int, int, int]:
+    """Validate field and domain support; return (d_bound, n0, omega_n0)."""
+    q = r1cs.modulus
+    if not fri_supported(q):
+        raise DomainError(
+            f"succinct openings need an NTT field (modulus {q} has no "
+            "registered 2-adic subgroup); use the revealing openings instead")
+    if r1cs.domain.kind != ROOTS:
+        raise DomainError("succinct openings require a roots interpolation domain "
+                          f"(got {r1cs.domain.kind})")
+    d_bound = _degree_bound(r1cs.m, mask_len)
+    n0 = d_bound << params.log_blowup
+    if n0 > max_codeword_size(q):
+        raise DomainError(
+            f"codeword size {n0} exceeds the 2-adic limit {max_codeword_size(q)} of "
+            f"modulus {q}; lower log_blowup, num_queries, or the circuit size")
+    return d_bound, n0, root_of_order(q, n0)
+
+
+def prove_r1cs_succinct(r1cs: R1CS, witness: Sequence[int], ctx: LweContext, seed: int,
+                        fri_params: Optional[FriParams] = None,
+                        device="cuda") -> SuccinctProofR1CS:
+    """One non-ZK kind-7 proof: the batch prover on a batch of one (the JAX
+    package pins the two byte-equal)."""
+    from .succinct_batch import prove_r1cs_succinct_batch
+
+    return prove_r1cs_succinct_batch(r1cs, [witness], ctx, [seed], fri_params=fri_params,
+                                     device=device)[0]
+
+
+def verify_r1cs_succinct(proof: SuccinctProofR1CS, public_inputs: Sequence[int],
+                         r1cs: R1CS, min_params: Optional[FriParams] = None) -> bool:
+    """Verify a kind-7 proof (ZK or not) on the host. ``min_params``
+    (default: ``FriParams()``) is the floor on the prover's FRI parameters."""
+    q = r1cs.modulus
+    if proof.modulus != q or proof.m != r1cs.m or proof.mask_len > _MASK_LEN_CAP:
+        return False
+    params = proof.fri_params
+    try:
+        params.validate()
+        d_bound, n0, omega_n = _check_instance(r1cs, params, proof.mask_len)
+    except DomainError:
+        return False
+    if not params.at_least(min_params or FriParams()):
+        return False
+
+    comm_words = np.concatenate([
+        statement_binding_words(proof.commitment_q, r1cs),
+        np.array(_roots_to_words([proof.input_root]), dtype=np.uint64)])
+    ch_alpha = Challenge.derive(public_inputs, comm_words, q)
+    if proof.challenge_alpha.alpha != ch_alpha.alpha:
+        return False
+    alpha = ch_alpha.alpha
+    ch_beta = Challenge.derive([alpha], comm_words, q)
+    if proof.challenge_beta.alpha != ch_beta.alpha:
+        return False
+    beta = ch_beta.alpha
+
+    evals = proof._evals()
+    if any(v >= q for v in evals):
+        return False
+    for x, (a, b, c, qv) in ((alpha, evals[:4]), (beta, evals[4:])):
+        if field.mul_mod(qv, r1cs.eval_vanishing(x), q) != field.sub_mod(
+                field.mul_mod(a, b, q), c, q):
+            return False
+
+    offset = coset_offset(q)
+    tr = _seed_fri_transcript(q, r1cs.m, proof.mask_len, params, d_bound,
+                              [proof.input_root], alpha, beta, evals)
+    lam = tr.challenge_field(q, b"fri-lambda")
+
+    def g_eval(index, half, lo_vals, hi_vals):
+        out = []
+        for pos, vals in ((index, lo_vals), (index + half, hi_vals)):
+            x = offset * pow(omega_n, pos, q) % q
+            da, db = (x - alpha) % q, (x - beta) % q
+            iab = field.mod_inverse(da * db % q, q)
+            if iab is None:
+                raise DomainError("challenge point on the evaluation domain")
+            ia, ib = iab * db % q, iab * da % q
+            acc, lam_pow = 0, 1
+            for k, fv in enumerate(vals):
+                lam2 = lam_pow * lam % q
+                acc = (acc + lam_pow * ((fv - evals[k]) % q) % q * ia
+                       + lam2 * ((fv - evals[4 + k]) % q) % q * ib) % q
+                lam_pow = lam2 * lam % q
+            out.append(acc)
+        return out[0], out[1]
+
+    return fri_verify(proof.fri, [(proof.input_root, 4)], g_eval, n0, offset, omega_n, q,
+                      params, tr)

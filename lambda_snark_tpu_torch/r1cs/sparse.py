@@ -59,6 +59,14 @@ class SparseMatrix:
     def nnz(self) -> int:
         return len(self.values)
 
+    def coo(self) -> List[Tuple[int, int, int]]:
+        """(row, col, value) triples in CSR order (row-major, as stored)."""
+        return [
+            (row, self.col_indices[i], self.values[i])
+            for row in range(self.rows)
+            for i in range(self.row_ptr[row], self.row_ptr[row + 1])
+        ]
+
     def mul_vec(self, v: Sequence[int], modulus: int) -> List[int]:
         """Modular SpMV of one vector on Python ints."""
         if len(v) != self.cols:

@@ -47,6 +47,12 @@ class Challenge:
     def to_bytes(self) -> bytes:
         return self.alpha.to_bytes(8, "little") + self.hash
 
+    @staticmethod
+    def from_bytes(data: bytes) -> "Challenge":
+        if len(data) != 40:
+            raise ValueError(f"challenge encoding must be 40 bytes, got {len(data)}")
+        return Challenge(alpha=int.from_bytes(data[0:8], "little"), hash=data[8:40])
+
 
 def derive_dual(public_inputs: Sequence[int], commitment_words: Sequence[int],
                 modulus: int):

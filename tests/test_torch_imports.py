@@ -81,7 +81,8 @@ def _ctx():
     )
 
 
-@pytest.mark.parametrize("entry", ["resolve", "commit_context", "prove"])
+@pytest.mark.parametrize("entry", ["resolve", "commit_context", "prove", "succinct_batch",
+                                   "succinct"])
 def test_entry_points_default_to_cuda(entry):
     _no_card()
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -89,10 +90,18 @@ def test_entry_points_default_to_cuda(entry):
             resolve()
         elif entry == "commit_context":
             DeviceCommitContext.from_host(_ctx())
-        else:
+        elif entry == "prove":
             r1cs = port.multiplication_gates_circuit(8, Q)
             port.prove_r1cs_batched(r1cs, [port.multiplication_gates_witness(8, Q)],
                                     _ctx(), seed=1)
+        else:
+            gl = port.NTT_MODULUS
+            r1cs = port.multiplication_gates_circuit(8, gl)
+            witness = port.multiplication_gates_witness(8, gl)
+            if entry == "succinct":
+                port.prove_r1cs_succinct(r1cs, witness, _ctx(), 1)
+            else:
+                port.prove_r1cs_succinct_batch(r1cs, [witness], _ctx(), [1])
 
 
 def _run_smoke(cwd):
@@ -122,7 +131,15 @@ def test_kernel_sources_and_build_dir():
     assert build.startswith(os.path.join("build", "torch_kernels"))
     with open(os.path.join(REPO, ".gitignore")) as f:
         assert "build/" in f.read().split()
-    assert set(kernels.LAUNCHES) == set(kernels.SOURCES)
+    # one launch counter per C entry, and every entry defined in its source
+    assert set(kernels.PROTOTYPES) == set(kernels.SOURCES)
+    entries = {fn for protos in kernels.PROTOTYPES.values() for fn in protos}
+    assert set(kernels.LAUNCHES) == entries
+    for name, protos in kernels.PROTOTYPES.items():
+        with open(os.path.join(kernels.CSRC_DIR, kernels.SOURCES[name])) as f:
+            text = f.read()
+        for fn in protos:
+            assert fn in text
 
 
 def _qplan():
@@ -195,3 +212,38 @@ def test_kernels_match_plain_on_card(q):
     e = torch.from_numpy(rng.integers(-9, 10, size=(5, 16), dtype=np.int32)).to(dev)
     msg = modarith.to_words(rng.integers(0, Q, size=(5, 9), dtype=np.uint64), dev)
     assert torch.equal(ring_commit(dctx.ring, s, e, msg), ring_commit_plain(dctx.ring, s, e, msg))
+
+
+@pytest.mark.cuda
+def test_keccak_and_ntt_kernels_match_plain_on_card():
+    """Kernel K and kernel N against their plain twins on the card (run with
+    ``python -m pytest tests/test_torch_imports.py -m cuda`` on a GPU host)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from lambda_snark_tpu_torch.ops import keccak
+    from lambda_snark_tpu_torch.ops.ntt_large import (
+        NttLargePlan,
+        dft_plan,
+        dft_rows,
+        dft_rows_plain,
+        ntt_forward_large,
+        ntt_forward_large_plain,
+    )
+    from lambda_snark_tpu_torch.proof.fri import root_of_order
+
+    rng = np.random.default_rng(6)
+    dev = torch.device("cuda")
+    gl = port.NTT_MODULUS
+    words = lambda shape: modarith.to_words(rng.integers(0, gl, size=shape, dtype=np.uint64), dev)
+    for g in range(1, 9):
+        vals = words((3, g, 64))
+        assert torch.equal(keccak.hash_leaves_flex(vals), keccak.hash_leaves_flex_plain(vals))
+    level = words((3, 32, 4))
+    assert torch.equal(keccak.hash_nodes(level), keccak.hash_nodes_plain(level))
+    for m in (4, 1024, 1 << 13):
+        plan = NttLargePlan.create(m, root_of_order(gl, m), device=dev)
+        x = words((5, m))
+        assert torch.equal(ntt_forward_large(plan, x), ntt_forward_large_plain(plan, x))
+    leaf = dft_plan(128, root_of_order(gl, 128), dev)
+    x = words((6, 128))
+    assert torch.equal(dft_rows(leaf, x), dft_rows_plain(leaf, x))

@@ -1,0 +1,120 @@
+"""Kernel N's plain twin (``lambda_snark_tpu_torch.ops.ntt_large``) against
+the JAX package: the TPU kernels ``ntt_forward_mxu_packed`` (ops/ntt_mxu.py)
+and its leaf ``dft_matmul_apply_pallas`` as the CPU runs them, at the sizes
+of ``tests/test_ntt_mxu.py``, and the four-step ``ntt_forward_large``.
+Every comparison is exact."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lambda_snark_tpu.core.params import NTT_MODULUS
+from lambda_snark_tpu.ops import ntt_mxu
+from lambda_snark_tpu.ops.limb import u64_to_limbs
+from lambda_snark_tpu.ops.ntt_large import four_step_plan, ntt_forward_large as jax_large
+from lambda_snark_tpu.proof import fri as jax_fri
+
+from lambda_snark_tpu_torch.ops import modarith
+from lambda_snark_tpu_torch.ops.ntt_large import (
+    NttLargePlan,
+    dft_plan,
+    dft_rows,
+    ntt_forward_large,
+)
+from lambda_snark_tpu_torch.proof import fri
+
+P = NTT_MODULUS
+
+
+def _vals(shape, seed):
+    return np.random.default_rng(seed).integers(0, P, size=shape, dtype=np.uint64)
+
+
+def _from_planes(planes) -> np.ndarray:
+    planes = np.asarray(planes).astype(np.uint64)
+    return sum(planes[i] << np.uint64(16 * i) for i in range(planes.shape[0]))
+
+
+@pytest.mark.parametrize("m", [256, 1024])
+def test_four_step_matches_ntt_forward_mxu_packed(m):
+    plan = ntt_mxu.mxu_ntt_plan(m)
+    x = _vals((2, m), seed=m)
+    x2 = ntt_mxu.pack_planes_jnp(jnp.asarray(u64_to_limbs(x, 4)))
+    want = _from_planes(ntt_mxu.unpack_planes_jnp(ntt_mxu.ntt_forward_mxu_packed(plan, x2)))
+    got = ntt_forward_large(NttLargePlan.create(m, plan.omega), modarith.to_words(x))
+    assert np.array_equal(modarith.to_u64(got), want)
+
+
+@pytest.mark.parametrize("b", [64, 128])
+def test_leaf_matches_dft_matmul_apply_pallas(b):
+    plan = ntt_mxu.DftMatmulPlan.create(b, ntt_mxu.mxu_ntt_plan(b).omega)
+    rows = 256 // (128 // b)
+    x = _vals((rows, b), seed=1000 + b)
+    want = _from_planes(ntt_mxu.dft_matmul_apply_pallas(plan, jnp.asarray(u64_to_limbs(x, 4))))
+    got = dft_rows(dft_plan(b, plan.omega), modarith.to_words(x))
+    assert np.array_equal(modarith.to_u64(got), want)
+
+
+def test_matches_ntt_forward_large_at_lde_root():
+    m = 1 << 10
+    omega = jax_fri.root_of_order(P, m)
+    assert fri.root_of_order(P, m) == omega
+    x = _vals((3, m), seed=7)
+    want = _from_planes(jax_large(four_step_plan(m, P, omega), jnp.asarray(u64_to_limbs(x, 4))))
+    got = ntt_forward_large(NttLargePlan.create(m, omega), modarith.to_words(x))
+    assert np.array_equal(modarith.to_u64(got), want)
+
+
+@pytest.mark.parametrize("m", [4, 8, 32])
+def test_small_sizes_match_naive_dft(m):
+    omega = fri.root_of_order(P, m)
+    x = _vals((2, m), seed=m)
+    got = modarith.to_u64(ntt_forward_large(NttLargePlan.create(m, omega), modarith.to_words(x)))
+    for r in range(2):
+        want = [sum(int(x[r, t]) * pow(omega, t * k, P) for t in range(m)) % P for k in range(m)]
+        assert [int(v) for v in got[r]] == want
+
+
+@pytest.mark.parametrize("bad", ["not_pow2", "too_large", "not_primitive", "width", "leaf"])
+def test_plans_and_wrappers_reject(bad):
+    if bad == "not_pow2":
+        with pytest.raises(ValueError):
+            NttLargePlan.create(48, 1)
+    elif bad == "too_large":
+        with pytest.raises(ValueError):
+            NttLargePlan.create(1 << 21, fri.root_of_order(P, 1 << 21))
+    elif bad == "not_primitive":
+        with pytest.raises(ValueError):
+            NttLargePlan.create(16, fri.root_of_order(P, 8))
+    elif bad == "width":
+        plan = NttLargePlan.create(16, fri.root_of_order(P, 16))
+        with pytest.raises(ValueError):
+            ntt_forward_large(plan, torch.zeros((2, 8), dtype=torch.int64))
+    else:
+        with pytest.raises(ValueError):
+            dft_plan(1 << 14, fri.root_of_order(P, 1 << 14))
+
+
+@pytest.mark.parametrize("n,final_len", [(2, 1), (512, 64), (16384, 2048)])
+def test_final_polynomial_inverts_the_codeword(n, final_len):
+    """FRI's final polynomials through kernel N's twins (the leaf up to
+    2^13 points, the four-step above): the coefficients of a codeword of
+    degree < final_len on the coset off <om> come back, and a higher one is
+    refused."""
+    from lambda_snark_tpu_torch.core.errors import DomainError
+    from lambda_snark_tpu_torch.ops.ntt import NttPlan, ntt_forward
+    from lambda_snark_tpu_torch.proof.fri_device import _final_polynomial
+
+    off, om = fri.coset_offset(P), fri.root_of_order(P, n)
+    coeffs = np.zeros((2, n), dtype=np.uint64)
+    coeffs[:, :final_len] = _vals((2, final_len), n)
+    twisted = [[int(c) * pow(off, i, P) % P for i, c in enumerate(row)] for row in coeffs]
+    cur = ntt_forward(NttPlan.create(n, P, om), modarith.to_words(twisted))
+    assert _final_polynomial(cur, off, om, final_len) == [
+        [int(c) for c in row[:final_len]] for row in coeffs]
+    if final_len < n:
+        high = ntt_forward(NttPlan.create(n, P, om),
+                           modarith.to_words(np.eye(1, n, final_len, dtype=np.uint64)))
+        with pytest.raises(DomainError):
+            _final_polynomial(high, off, om, final_len)
