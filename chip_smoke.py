@@ -34,13 +34,38 @@ Phases, each printing one flushed line with the seconds since start:
     equal a ``device="cpu"`` run byte for byte, a flipped byte in a FRI path
     and a flipped ``q_alpha`` are rejected, and the launch counts of kernels
     K, N, Q and R all moved during the run;
-12. a kind-7 JSON line (proofs/s, the median of five timed batches; a
-    host-clock breakdown by stage, each part the median of five staged
-    batches; the device-busy time and idle share of one batch under
-    ``torch.profiler``, from the CUDA activity of its trace), then the
-    ``kernels`` JSON line: for each kernel on each path its time, its plain
-    twin's time, its bound and its launches in that path's run, counted per
-    C entry (the four-step NTT's entry launches two kernels, one per pass).
+12. a host-clock breakdown of kind-7 batches by stage, each part the median
+    of five staged batches, and the device-busy time and idle share of one
+    batch under ``torch.profiler``, from the CUDA activity of its trace;
+13. kernel T (``csrc/ntt.cu``, the port of the TPU's batched resident NTT)
+    against ``ops.ntt``, forward and inverse, bit-exact: the 44-bit field
+    and Goldilocks at 256 x 2^13 and 64 x 256 (entry ``ntt_rows``),
+    2013265921 (run-time Barrett) at 16 x 2^13 and 16 x 2^14, and the
+    four-step at 16 and 48 x 2^14, 16 and 64 x 2^17 and 1 x 2^21;
+14. kernels Q and R past one tile, m = n = 2^14 x 16 rows: their long
+    routes through kernel T against ``quotient_plain`` and
+    ``ring_commit_plain``, and each elementwise entry of the routes against
+    its twin;
+15. ``prove_r1cs_succinct_batch`` at m = 2^14, S = 16 on the card: every
+    proof verifies, proofs 0 and 1 equal a ``device="cpu"`` run byte for
+    byte, the median of five batches, and every entry of the path launched;
+    then kernel K at every input shape that run launched it at (group
+    leaves 16 x 4 x 2^17, each paired-leaf and node level), and kernel T at
+    each of its shapes that phase 13 did not hold, against their twins;
+16. ``prove_r1cs_stream`` at m = n = 4096 in batches of 256 (3 batches and a
+    tail of 100): every proof through ``deserialize_any`` and
+    ``verify_r1cs``, the first 8 equal a CPU run, proofs/s; a ``ProofStore``
+    resume (a run cut after 300 proofs, then a full run) gives the same
+    bytes and a store that verifies; the ZK stream at m = 2048 (a batch and
+    a tail) through ``verify_r1cs_zk``;
+17. ``entry()``: the prove stage at m = 16, n = 32, B = 2 equals the CPU's;
+
+then the JSON lines: kind 7 at m = 2^13 (proofs/s, breakdown, idle share),
+kind 7 at m = 2^14, the streams, and the ``kernels`` line: for each kernel
+on each path its time, its plain twin's time, its bound and its launches in
+that path's run, counted per C entry (the four-step NTT's entry launches
+two kernels, one per pass) and, for kernels K and T on the m = 2^14 kind-7
+path, per input shape and direction.
 
 Any failure ends the script with a non-zero exit and no result line. The
 last line is ``{"ok": true, "device": {...}}``. It needs one CUDA card; it
@@ -73,7 +98,7 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # 32 x 32 -> 64 multiplies; Barrett (44-bit field) adds two more partial
 # 64-bit products, the Goldilocks fold one 32 x 32 multiply; an add or
 # subtract is a 64-bit add (2) plus a compare-select (1).
-OPS_MUL = {"q45": 16, "goldilocks": 12}
+OPS_MUL = {"q45": 16, "goldilocks": 12, "barrett": 16}
 OPS_ADD = 3
 # Least 32-bit instructions per Keccak-f[1600] permutation (csrc/keccak.cu):
 # per round and 32-bit half of the 25 lanes, theta's column sums take 2
@@ -86,10 +111,23 @@ OPS_KECCAK = 24 * 180
 KIND7_M, KIND7_S = 1 << 13, 16
 KIND7_CHECK = 2  # kind-7 proofs compared byte for byte with a CPU run
 KIND7_REPS = 5  # timed kind-7 batches (the first one counts launches)
-# the C entries the kind-7 path must launch (kernels.LAUNCHES keys)
+# the C entries the kind-7 path must launch (kernels.launches() keys)
 KIND7_ENTRIES = ("keccak_group_leaves", "keccak_leaves", "keccak_nodes",
-                 "ntt_goldilocks_forward", "ntt_goldilocks_rows", "quotient_goldilocks",
+                 "ntt_four_step", "ntt_rows", "quotient_goldilocks",
                  "ring_commit_goldilocks")
+# kind 7 one size up, m = 2^14: kernels Q and R take their long routes
+# through kernel T's four-step
+KIND7_LONG_M = 1 << 14
+KIND7_LONG_ENTRIES = ("keccak_group_leaves", "keccak_leaves", "keccak_nodes",
+                      "ntt_four_step", "ntt_rows", "quotient_pointwise", "ring_twist",
+                      "ring_accumulate", "ring_finish")
+# prove_r1cs_stream: three full batches and a partial tail; ZK at m = 2048
+STREAM_COUNT, STREAM_ZK_COUNT, STREAM_CUT = 3 * BATCH + 100, BATCH + 100, 300
+
+
+def nonzero(launches: dict) -> dict:
+    """The entries of a launch count that moved."""
+    return {k: v for k, v in launches.items() if v}
 
 
 def phase(msg: str) -> None:
@@ -145,13 +183,19 @@ def keccak_work(hashes: int, in_bytes: int):
     return in_bytes + 32 * hashes, hashes * OPS_KECCAK
 
 
-def ntt_work(rows: int, m: int, twiddled: bool):
+def ntt_work(rows: int, m: int, twiddled: bool, field: str = "goldilocks",
+             scaled: bool = False):
     """Bytes and ops of ``rows`` m-point NTTs (the four-step adds one
-    twiddle product per word; its tables are read once)."""
+    twiddle product per word, the inverse one 1/m product; tables are read
+    once)."""
     butterflies = rows * (m // 2) * (m.bit_length() - 1)
-    muls = butterflies + (rows * m if twiddled else 0)
+    muls = butterflies + (rows * m if twiddled else 0) + (rows * m if scaled else 0)
     nbytes = 2 * rows * m * 8 + (m if twiddled else m // 2) * 8
-    return nbytes, muls * OPS_MUL["goldilocks"] + 2 * butterflies * OPS_ADD
+    return nbytes, muls * OPS_MUL[field] + 2 * butterflies * OPS_ADD
+
+
+def elementwise_work(read_bytes: int, write_bytes: int, muls: int, adds: int):
+    return read_bytes + write_bytes, muls * OPS_MUL["goldilocks"] + adds * OPS_ADD
 
 
 def device_busy(torch, fn, trace_path: str):
@@ -212,11 +256,10 @@ def kind7_phases(np, torch, lst, dev, rng, hold, report):
     from lambda_snark_tpu_torch import kernels
     from lambda_snark_tpu_torch.commit.lwe_device import DeviceCommitContext
     from lambda_snark_tpu_torch.ops import keccak, modarith
+    from lambda_snark_tpu_torch.ops.ntt import NttPlan, ntt_forward
+    from lambda_snark_tpu_torch.ops.ntt_batched import ntt_forward_batched
     from lambda_snark_tpu_torch.ops.ntt_large import (
         NttLargePlan,
-        dft_plan,
-        dft_rows,
-        dft_rows_plain,
         ntt_forward_large,
         ntt_forward_large_plain,
     )
@@ -282,12 +325,12 @@ def kind7_phases(np, torch, lst, dev, rng, hold, report):
             ("ntt_goldilocks_leaf", 128, 4 * s * n0 // 128, root_of_order(gl, 128)),
             ("ntt_goldilocks_leaf_kind7", final_n, s,
              pow(root_of_order(gl, final_n), gl - 2, gl))):
-        leaf = dft_plan(b, omega, dev)
+        leaf = NttPlan.create(b, gl, omega, device=dev)
         x = words((rows, b), gl)
         report[key_] = hold(
             f"phase 9 kernel N leaf B={b} x {rows} rows",
-            lambda v, leaf=leaf: dft_rows(leaf, v), lambda v, leaf=leaf: dft_rows_plain(leaf, v),
-            (x,), ntt_work(rows, b, False))
+            lambda v, leaf=leaf: ntt_forward_batched(leaf, v),
+            lambda v, leaf=leaf: ntt_forward(leaf, v), (x,), ntt_work(rows, b, False))
 
     # --- phase 10: kernels Q and R at the kind-7 shapes ---------------------------
     qplan = QuotientPlan.create(m, gl, field_psi_for(m, gl), device=dev)
@@ -324,7 +367,7 @@ def kind7_phases(np, torch, lst, dev, rng, hold, report):
     t = time.time()
     proofs = lst.prove_r1cs_succinct_batch(r1cs7, wits, ctx7, seeds)
     elapsed = time.time() - t
-    launches = dict(kernels.LAUNCHES)
+    launches = kernels.launches()
     if min(launches[e] for e in KIND7_ENTRIES) < 1:
         raise RuntimeError(f"kind 7: a kernel of the path was not launched: {launches}")
     if len(proofs) != s or not all(verify_r1cs_succinct(p, [1], r1cs7) for p in proofs):
@@ -354,7 +397,7 @@ def kind7_phases(np, torch, lst, dev, rng, hold, report):
     elapsed = sorted(times)[len(times) // 2]
     phase(f"phase 11 prove_r1cs_succinct_batch m={m} S={s} n0={n0}: {s} proofs verify, "
           f"first {KIND7_CHECK} byte-identical to the CPU run, a flipped path byte and "
-          f"a flipped q_alpha rejected; launches {launches}; end to end "
+          f"a flipped q_alpha rejected; launches {nonzero(launches)}; end to end "
           f"{[round(x, 4) for x in times]} s, median {elapsed:.4f} s "
           f"({s / elapsed:.2f} proofs/s), {len(p0.to_bytes())} bytes per proof")
 
@@ -413,6 +456,290 @@ def kind7_phases(np, torch, lst, dev, rng, hold, report):
                           breakdown_median_s=parts, proof_bytes=len(p0.to_bytes()),
                           profiled_wall_s=wall, device_busy_s=busy, device_idle_share=idle,
                           top_kernels_ms=top)
+
+
+def kernel_t_phases(np, torch, lst, dev, rng, hold, report):
+    """Phases 13-14: kernel T against ``ops.ntt`` (rows and four-step, both
+    directions, three fields), then the long routes of kernels Q and R at
+    m = n = 2^14 x 16 rows, each elementwise entry against its twin."""
+    from lambda_snark_tpu_torch.commit.lwe import goldilocks_ring_plan
+    from lambda_snark_tpu_torch.core.params import HEALTHCARE_DUMP_MODULUS
+    from lambda_snark_tpu_torch.ops import modarith
+    from lambda_snark_tpu_torch.ops import quotient as qmod
+    from lambda_snark_tpu_torch.ops import ring_commit as rmod
+    from lambda_snark_tpu_torch.ops.ntt import NttPlan, ntt_forward, ntt_inverse
+    from lambda_snark_tpu_torch.ops.ntt_batched import ntt_forward_batched, ntt_inverse_batched
+    from lambda_snark_tpu_torch.ops.ntt_large import ntt_forward_large
+    from lambda_snark_tpu_torch.pipeline import field_psi_for
+    from lambda_snark_tpu_torch.proof.fri import root_of_order
+
+    gl, q45, bq = lst.NTT_MODULUS, lst.NTT_FRIENDLY_MODULUS, HEALTHCARE_DUMP_MODULUS
+    names = {gl: "goldilocks", q45: "q45", bq: "barrett"}
+
+    def words(shape, q):
+        return modarith.to_words(rng.integers(0, q, size=shape, dtype=np.uint64), dev)
+
+    # --- phase 13: kernel T ----------------------------------------------------
+    # rows: both fields at 2^13 x 256 and 256 x 64, Barrett at 2^13 x 16;
+    # four-step: 16 x 2^14 and 48 x 2^14 (the long routes of the m = 2^14
+    # kind-7 path), 16 x 2^17 and 64 x 2^17 (its LDE), 1 x 2^21, Barrett
+    for q, rows, size in ((q45, 256, 1 << 13), (q45, 64, 256), (gl, 256, 1 << 13),
+                          (gl, 64, 256), (bq, 16, 1 << 13), (gl, 16, 1 << 14),
+                          (gl, 48, 1 << 14), (gl, 16, 1 << 17), (gl, 64, 1 << 17),
+                          (gl, 1, 1 << 21), (bq, 16, 1 << 14)):
+        plan = NttPlan.create(size, q, root_of_order(q, size), device=dev)
+        x = words((rows, size), q)
+        four = size > 1 << 13
+        for inverse, fn, plain in ((False, ntt_forward_batched, ntt_forward),
+                                   (True, ntt_inverse_batched, ntt_inverse)):
+            key_ = (f"ntt_{'four_step' if four else 'rows'}_{names[q]}_{rows}x{size}_"
+                    f"{'inverse' if inverse else 'forward'}")
+            report[key_] = dict(entry="ntt_four_step" if four else "ntt_rows",
+                                shape=(rows, size),
+                                variant=f"{'inverse' if inverse else 'forward'} mod {q}")
+            report[key_].update(hold(
+                f"phase 13 kernel T {'inverse' if inverse else 'forward'} {names[q]} "
+                f"{rows}x{size}", lambda v, plan=plan, fn=fn: fn(plan, v),
+                lambda v, plan=plan, plain=plain: plain(plan, v), (x,),
+                ntt_work(rows, size, four, names[q], inverse)))
+
+    # --- phase 14: the long routes of kernels Q and R ---------------------------
+    m, s = KIND7_LONG_M, KIND7_S
+    qplan = qmod.QuotientPlan.create(m, gl, field_psi_for(m, gl), device=dev)
+    a, b = words((s, m), gl), words((s, m), gl)
+    c = modarith.mul_mod(a, b, gl)
+    c[1, 5] = modarith.add_mod(c[1:2, 5:6], torch.ones_like(c[1:2, 5:6]), gl)[0, 0]
+    if qmod.quotient(qplan, a, b, c)[4].tolist() != [i != 1 for i in range(s)]:
+        raise RuntimeError("kernel Q long route: validity flags wrong")
+    report["quotient_long"] = hold(
+        f"phase 14 kernel Q long route goldilocks m={m} rows={s}",
+        lambda *v: qmod.quotient(qplan, *v), lambda *v: qmod.quotient_plain(qplan, *v),
+        (a, b, c), quotient_work(s, m, "goldilocks"))
+    odd = [ntt_forward_large(qplan.ntt.large, p, pre=qplan.ntt.psi_pows)
+           for p in (a, b, c)]  # stand-ins for the odd-coset evaluations
+    report["quotient_pointwise"] = hold(
+        f"phase 14 kernel Q pointwise m={m} rows={s}",
+        lambda *v: qmod.quotient_pointwise(gl, *v),
+        lambda *v: qmod.quotient_pointwise_plain(gl, *v), (*odd, a, b, c),
+        elementwise_work(6 * s * m * 8, s * m * 8 + s * 4, 2 * s * m, 2 * s * m))
+    ctx7 = lst.LweContext(lst.Params(lst.SecurityLevel.BITS128,
+                                     lst.Profile.ring_b(n=m, k=1, q=gl, sigma=SIGMA)),
+                          context_seed=0)
+    ring = rmod.RingCommitPlan.create(ctx7.a_hat, goldilocks_ring_plan(m, dev))
+    s_draws = torch.from_numpy(rng.integers(-39, 40, size=(1, s, m), dtype=np.int32)).to(dev)
+    e_draws = torch.from_numpy(rng.integers(-39, 40, size=(s, m), dtype=np.int32)).to(dev)
+    msg = words((s, m), gl)
+    report["ring_commit_long"] = hold(
+        f"phase 14 kernel R long route n={m} k=1 rows={s} msg_len={m}",
+        lambda *v: rmod.ring_commit(ring, *v), lambda *v: rmod.ring_commit_plain(ring, *v),
+        (s_draws, e_draws, msg), ring_work(s, m, 1, m))
+    report["ring_twist"] = hold(
+        f"phase 14 kernel R twist n={m} rows={s}", lambda v: rmod.ring_twist(ring, v),
+        lambda v: rmod.ring_twist_plain(ring, v), (s_draws,),
+        elementwise_work(s * m * 4 + m * 8, s * m * 8, s * m, s * m))
+    s_hat = words((1, s, m), gl)
+    report["ring_accumulate"] = hold(
+        f"phase 14 kernel R accumulate n={m} k=1 rows={s}",
+        lambda v: rmod.ring_accumulate(ring, v), lambda v: rmod.ring_accumulate_plain(ring, v),
+        (s_hat,), elementwise_work(s * m * 8 + m * 8, s * m * 8, s * m, 0))
+    x = words((s, m), gl)
+    report["ring_finish"] = hold(
+        f"phase 14 kernel R finish n={m} rows={s} msg_len={m}",
+        lambda *v: rmod.ring_finish(ring, *v), lambda *v: rmod.ring_finish_plain(ring, *v),
+        (x, e_draws, msg), elementwise_work(2 * s * m * 8 + s * m * 4, s * m * 8, 0, 3 * s * m))
+
+
+def kind7_long_phase(np, torch, lst, rng):
+    """Phase 15: ``prove_r1cs_succinct_batch`` at m = 2^14, S = 16 on the card.
+    Returns (the path's launches, its record)."""
+    from lambda_snark_tpu_torch import kernels
+    from lambda_snark_tpu_torch.ops import modarith
+    from lambda_snark_tpu_torch.proof.succinct import verify_r1cs_succinct
+
+    gl, m, s = lst.NTT_MODULUS, KIND7_LONG_M, KIND7_S
+    ctx = lst.LweContext(lst.Params(lst.SecurityLevel.BITS128,
+                                    lst.Profile.ring_b(n=m, k=1, q=gl, sigma=SIGMA)),
+                         context_seed=0)
+    r1cs = kind7_circuit(lst, m)
+    xs = rng.integers(0, gl, size=(s, m), dtype=np.uint64)
+    ys = modarith.to_u64(modarith.mul_mod(modarith.to_words(xs), modarith.to_words(xs), gl))
+    wits = np.concatenate([np.ones((s, 1), np.uint64), xs, ys], axis=1)
+    seeds = list(range(200, 200 + s))
+    lst.prove_r1cs_succinct_batch(r1cs, wits, ctx, seeds)  # warm-up
+    cpu = lst.prove_r1cs_succinct_batch(r1cs, wits[:KIND7_CHECK], ctx, seeds[:KIND7_CHECK],
+                                        device="cpu")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t = time.time()
+    proofs = lst.prove_r1cs_succinct_batch(r1cs, wits, ctx, seeds)
+    times = [time.time() - t]
+    launches = kernels.launches()
+    shapes = dict(kernels.LAUNCHES)
+    if min(launches[e] for e in KIND7_LONG_ENTRIES) < 1:
+        raise RuntimeError(f"kind 7 at m={m}: a kernel of the path was not launched: {launches}")
+    if len(proofs) != s or not all(verify_r1cs_succinct(p, [1], r1cs) for p in proofs):
+        raise RuntimeError(f"kind 7 at m={m}: a proof from the card does not verify")
+    for i in range(KIND7_CHECK):
+        if proofs[i].to_bytes() != cpu[i].to_bytes():
+            raise RuntimeError(f"kind 7 at m={m}: proof {i} differs from the CPU run")
+    for _ in range(KIND7_REPS - 1):
+        torch.cuda.synchronize()
+        t = time.time()
+        lst.prove_r1cs_succinct_batch(r1cs, wits, ctx, seeds)
+        times.append(time.time() - t)
+    median = sorted(times)[len(times) // 2]
+    phase(f"phase 15 prove_r1cs_succinct_batch m={m} S={s}: {s} proofs verify, first "
+          f"{KIND7_CHECK} byte-identical to the CPU run; launches {nonzero(launches)}; end "
+          f"to end {[round(x, 4) for x in times]} s, median {median:.4f} s ({s / median:.2f} "
+          f"proofs/s), {len(proofs[0].to_bytes())} bytes per proof")
+    return launches, shapes, dict(m=m, statements=s, end_to_end_s=times,
+                                  end_to_end_median_s=median, proofs_per_s=s / median,
+                                  proof_bytes=len(proofs[0].to_bytes()))
+
+
+def kind7_long_shapes_phase(np, torch, lst, dev, rng, hold, shapes, report):
+    """Phase 15, continued: kernel K at every (entry, input shape) of the
+    m = 2^14 kind-7 run's ``shapes`` (``kernels.LAUNCHES``), and kernel T
+    at each (entry, shape, direction) of it that phase 13 did not hold,
+    each against its twin on fresh random words of that shape. Returns
+    ``kernels`` line entries with the run's launches at each shape."""
+    from lambda_snark_tpu_torch.ops import keccak, modarith
+    from lambda_snark_tpu_torch.ops.ntt import NttPlan, ntt_forward, ntt_inverse
+    from lambda_snark_tpu_torch.ops.ntt_batched import ntt_forward_batched, ntt_inverse_batched
+    from lambda_snark_tpu_torch.proof.fri import root_of_order
+
+    gl = lst.NTT_MODULUS
+    held_t = {(r["entry"], r["shape"], r["variant"]) for r in report.values() if "entry" in r}
+    src = "lambda_snark_tpu_torch/csrc"
+    out = []
+    for (entry, shape, variant), launches in sorted(shapes.items()):
+        label = f"phase 15 {entry} {'x'.join(map(str, shape))} {variant}".rstrip()
+        if entry.startswith("keccak_"):
+            if entry == "keccak_nodes":  # (T, rows, 4) digests -> rows / 2 nodes
+                x = modarith.to_words(rng.integers(0, 1 << 63, size=shape, dtype=np.uint64), dev)
+                fn, plain, hashes = keccak.hash_nodes, keccak.hash_nodes_plain, x.numel() // 8
+            else:  # (T, G, n) words -> n / 2 leaves; paired leaves take (T, n)
+                x = modarith.to_words(rng.integers(0, gl, size=shape, dtype=np.uint64), dev)
+                fn, plain = keccak.hash_leaves_flex, keccak.hash_leaves_flex_plain
+                if entry == "keccak_leaves":
+                    x = x[:, 0].contiguous()
+                    fn, plain = keccak.hash_leaves, keccak.hash_leaves_plain
+                hashes = shape[0] * shape[2] // 2
+            rec = hold(label, fn, plain, (x,), keccak_work(hashes, x.numel() * 8))
+            replaces = "lambda_snark_tpu/ops/keccak_pallas.py:242"
+            src_file = "keccak.cu"
+        elif entry.startswith("ntt_") and (entry, shape, variant) not in held_t:
+            direction, q = variant.split(" mod ")
+            q, (rows, size) = int(q), shape
+            inverse = direction == "inverse"
+            plan = NttPlan.create(size, q, root_of_order(q, size), device=dev)
+            x = modarith.to_words(rng.integers(0, q, size=shape, dtype=np.uint64), dev)
+            rec = hold(label,
+                       lambda v: (ntt_inverse_batched if inverse else ntt_forward_batched)(plan, v),
+                       lambda v: (ntt_inverse if inverse else ntt_forward)(plan, v), (x,),
+                       ntt_work(rows, size, entry == "ntt_four_step",
+                                "goldilocks" if q == gl else "barrett", inverse))
+            replaces = "lambda_snark_tpu/ops/ntt_pallas.py:126"
+            src_file = "ntt.cu"
+        else:
+            continue
+        name = f"{entry}_kind7_2pow14_{'x'.join(map(str, shape))}"
+        if variant:
+            name += f"_{variant.split()[0]}"
+        out.append(dict(name=name, route="cuda", source=f"{src}/{src_file}", replaces=replaces,
+                        launches=launches, **rec, library_ms=None))
+    return out
+
+
+def stream_phases(np, torch, lst, dev, rng, ctx, q):
+    """Phases 16-17: ``prove_r1cs_stream`` (plain at m = n = 4096, ZK at
+    m = 2048; batches of 256 and a partial tail) with deserialize_any,
+    the verifiers and a ProofStore resume; then ``entry()``. Returns
+    (launches per path, the stream record)."""
+    import shutil
+
+    from lambda_snark_tpu_torch import kernels
+    from lambda_snark_tpu_torch.ops import modarith
+
+    def witness_rows(count: int, m: int) -> list:
+        wa = rng.integers(1, q, size=(count, m), dtype=np.uint64)
+        wb = rng.integers(1, q, size=(count, m), dtype=np.uint64)
+        wc = modarith.to_u64(modarith.mul_mod(modarith.to_words(wa, dev),
+                                              modarith.to_words(wb, dev), q))
+        return list(np.concatenate([np.ones((count, 1), np.uint64), wa, wb, wc], axis=1))
+
+    launches, record = {}, {}
+    for label, m, count, zk in (("stream", M_PLAIN, STREAM_COUNT, False),
+                                ("stream_zk", M_ZK, STREAM_ZK_COUNT, True)):
+        r1cs = lst.multiplication_gates_circuit(m, q)
+        ws = witness_rows(count, m)
+        check = lst.verify_r1cs_zk if zk else lst.verify_r1cs
+        list(lst.prove_r1cs_stream(r1cs, iter(ws[:BATCH]), ctx, SEED, batch=BATCH, zk=zk))
+        cpu = list(lst.prove_r1cs_stream(r1cs, iter(ws[:CHECK_ROWS]), ctx, SEED, batch=BATCH,
+                                         zk=zk, device="cpu"))
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t = time.time()
+        proofs = list(lst.prove_r1cs_stream(r1cs, iter(ws), ctx, SEED, batch=BATCH, zk=zk))
+        elapsed = time.time() - t
+        launches[label] = kernels.launches()
+        batches = -(-count // BATCH)
+        if min(launches[label]["quotient_q45"], launches[label]["ring_commit_goldilocks"]) \
+                != batches:
+            raise RuntimeError(f"{label}: kernels Q and R not launched once per batch: "
+                               f"{launches[label]}")
+        if len(proofs) != count:
+            raise RuntimeError(f"{label}: {len(proofs)} proofs for {count} witnesses")
+        for i, (w, p) in enumerate(zip(ws, proofs)):
+            if not check(lst.deserialize_any(p.to_bytes()), r1cs.public_inputs(w), r1cs):
+                raise RuntimeError(f"{label}: proof {i} does not verify after deserialize_any")
+        if [p.to_bytes() for p in proofs[:CHECK_ROWS]] != [p.to_bytes() for p in cpu]:
+            raise RuntimeError(f"{label}: the first {CHECK_ROWS} proofs differ from the CPU run")
+        record[label] = dict(m=m, proofs=count, batches=batches, end_to_end_s=elapsed,
+                             proofs_per_s=count / elapsed)
+        phase(f"phase 16 prove_r1cs_stream {label} m={m} n={RING_N} batch={BATCH}: {count} "
+              f"proofs in {batches} batches, each through deserialize_any and "
+              f"{check.__name__}, first {CHECK_ROWS} byte-identical to the CPU run; launches "
+              f"{nonzero(launches[label])}; {elapsed:.3f} s ({count / elapsed:.1f} proofs/s)")
+        if zk:
+            continue
+        root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "stream_store")
+        shutil.rmtree(root, ignore_errors=True)
+        store = lst.ProofStore(root)
+        cut = lst.prove_r1cs_stream(r1cs, iter(ws), ctx, SEED, batch=BATCH, store=store)
+        first = [next(cut).to_bytes() for _ in range(STREAM_CUT)]
+        cut.close()
+        again = list(lst.prove_r1cs_stream(r1cs, iter(ws), ctx, SEED, batch=BATCH,
+                                           store=lst.ProofStore(root)))
+        store = lst.ProofStore(root)
+        publics = [(r1cs.public_inputs(w), SEED) for w in ws]
+        labels = [f"stream-{i}" for i in range(count)]
+        swept = store.verify_all(r1cs)
+        if (first != [p.to_bytes() for p in proofs[:STREAM_CUT]]
+                or [p.to_bytes() for p in again] != [p.to_bytes() for p in proofs]
+                or store.missing_statements(r1cs, publics, labels)
+                or len(swept) != count or not all(swept.values())):
+            raise RuntimeError("stream: the resumed run or the store disagrees")
+        phase(f"phase 16 ProofStore resume: a run cut after {STREAM_CUT} proofs, then a "
+              f"full run, regenerate identical bytes; the store holds and verifies all "
+              f"{count}")
+
+    # --- phase 17: entry() -------------------------------------------------------
+    fn, args = lst.entry()
+    cpu_fn, cpu_args = lst.entry(device="cpu")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    launches["entry"] = kernels.launches()
+    want = cpu_fn(*cpu_args)
+    if min(launches["entry"]["quotient_q45"], launches["entry"]["ring_commit_goldilocks"]) < 1 \
+            or not all(torch.equal(g.cpu(), w) for g, w in zip(out, want)) \
+            or not bool(out[5].all()):
+        raise RuntimeError("entry(): the card's prove stage differs from the CPU's")
+    phase(f"phase 17 entry(): prove stage m=16 n=32 B=2 equals the CPU run; launches "
+          f"{nonzero(launches['entry'])}")
+    return launches, record
 
 
 def main() -> int:
@@ -558,7 +885,7 @@ def main() -> int:
         t = time.time()
         proofs = prove_r1cs_batched(circuit, w, ctx, seed=SEED, zk=zk)
         elapsed = time.time() - t
-        launches = dict(kernels.LAUNCHES)
+        launches = kernels.launches()
         if min(launches["quotient_q45"], launches["ring_commit_goldilocks"]) < 1:
             raise RuntimeError(f"{label}: a kernel of the path was not launched: {launches}")
         if len(proofs) != BATCH:
@@ -570,7 +897,7 @@ def main() -> int:
         stage[label] = dict(m=m, launches=launches, end_to_end_s=elapsed)
         phase(f"phase {5 if not zk else 6} prove_r1cs_batched {label} m={m} n={RING_N} "
               f"B={BATCH}: {BATCH} proofs hold a b - c = Q Z_H at alpha and beta, first "
-              f"{CHECK_ROWS} byte-identical to the CPU run; launches {launches}; "
+              f"{CHECK_ROWS} byte-identical to the CPU run; launches {nonzero(launches)}; "
               f"{elapsed:.3f} s end to end ({BATCH / elapsed:.1f} proofs/s)")
 
     # --- phase 7: device-stage and sampler times, the kernels line ----------
@@ -626,27 +953,85 @@ def main() -> int:
     # Its only four-step transform is the n0 = 2^16-point LDE and its only
     # leaf transform the final polynomials (S x 512), so the 2^20 and the
     # B = 128 shapes (more calls of the same entries) have none of them.
-    for name, rep, src_file, replaces, count in (
+    for name, rep, src_file, replaces, launches in (
             ("keccak_group_leaves", "keccak_group_leaves", "keccak.cu", keccak_src,
              k7["keccak_group_leaves"]),
             ("keccak_leaves", "keccak_leaves", "keccak.cu", keccak_src, k7["keccak_leaves"]),
             ("keccak_nodes", "keccak_nodes", "keccak.cu", keccak_src, k7["keccak_nodes"]),
-            ("ntt_goldilocks", "ntt_goldilocks", "ntt_goldilocks.cu",
-             "lambda_snark_tpu/ops/ntt_mxu.py:631", k7["ntt_goldilocks_forward"]),
-            ("ntt_goldilocks_2pow20", "ntt_goldilocks_2pow20", "ntt_goldilocks.cu",
+            ("ntt_goldilocks", "ntt_goldilocks", "ntt.cu",
+             "lambda_snark_tpu/ops/ntt_mxu.py:631", k7["ntt_four_step"]),
+            ("ntt_goldilocks_2pow20", "ntt_goldilocks_2pow20", "ntt.cu",
              "lambda_snark_tpu/ops/ntt_mxu.py:631", 0),
-            ("ntt_goldilocks_leaf", "ntt_goldilocks_leaf", "ntt_goldilocks.cu",
+            ("ntt_goldilocks_leaf", "ntt_goldilocks_leaf", "ntt.cu",
              "lambda_snark_tpu/ops/ntt_mxu.py:378", 0),
-            ("ntt_goldilocks_leaf_kind7", "ntt_goldilocks_leaf_kind7", "ntt_goldilocks.cu",
-             "lambda_snark_tpu/ops/ntt_mxu.py:378", k7["ntt_goldilocks_rows"]),
+            ("ntt_goldilocks_leaf_kind7", "ntt_goldilocks_leaf_kind7", "ntt.cu",
+             "lambda_snark_tpu/ops/ntt_mxu.py:378", k7["ntt_rows"]),
             ("quotient_goldilocks_kind7", "quotient_goldilocks_kind7", "quotient.cu",
              "lambda_snark_tpu/ops/quotient_pallas.py:143", k7["quotient_goldilocks"]),
             ("ring_commit_goldilocks_kind7", "ring_commit_kind7", "ring_commit.cu",
              ring_src, k7["ring_commit_goldilocks"])):
         entries.append(dict(name=name, route="cuda", source=f"{src}/{src_file}",
-                            replaces=replaces, launches=count, **report[rep],
+                            replaces=replaces, launches=launches, **report[rep],
+                            library_ms=None))
+    kernel_t_phases(np, torch, lst, dev, rng, hold, report)
+    k7_long, k7_shapes, kind7_long = kind7_long_phase(np, torch, lst, rng)
+    # kernel T: each held shape and direction gets the m = 2^14 kind-7
+    # path's launches of its entry at that shape and direction
+    # (kernels.LAUNCHES); shapes the path does not run get 0
+    pallas_src = "lambda_snark_tpu/ops/ntt_pallas.py:126"
+    shaped = []
+    for key_, rep in list(report.items()):
+        if key_.startswith(("ntt_rows_", "ntt_four_step_")):
+            rep = dict(rep)
+            entry = rep.pop("entry")
+            launches = k7_shapes.get((entry, rep.pop("shape"), rep.pop("variant")), 0)
+            shaped.append(dict(name=key_, route="cuda", source=f"{src}/ntt.cu",
+                               replaces=pallas_src, launches=launches, **rep,
+                               library_ms=None))
+    shaped += kind7_long_shapes_phase(np, torch, lst, dev, rng, hold, k7_shapes, report)
+    # every launch of kernels K and T on the m = 2^14 path is in the line,
+    # under the shape it was held at
+    for entry in ("keccak_group_leaves", "keccak_leaves", "keccak_nodes", "ntt_four_step",
+                  "ntt_rows"):
+        listed = sum(e["launches"] for e in shaped if e["name"].startswith(entry + "_"))
+        if listed != k7_long[entry]:
+            raise RuntimeError(f"kind 7 at m=2^14: {entry} launched {k7_long[entry]} times, "
+                               f"{listed} of them at a held shape")
+    entries += shaped
+    phase(f"phase 15 kernels K and T held at each of the {len(k7_shapes)} (entry, shape, "
+          f"direction) triples of the m={KIND7_LONG_M} run; every launch of theirs listed")
+    st, stream = stream_phases(np, torch, lst, dev, rng, ctx, q)
+    for name, rep, src_file, replaces, launches in (
+            ("quotient_long_kind7_2pow14", "quotient_long", "quotient.cu",
+             "lambda_snark_tpu/ops/quotient_pallas.py:143; " + pallas_src,
+             k7_long["quotient_pointwise"]),
+            ("quotient_pointwise_kind7_2pow14", "quotient_pointwise", "quotient.cu",
+             "lambda_snark_tpu/ops/quotient_pallas.py:143", k7_long["quotient_pointwise"]),
+            ("ring_commit_long_kind7_2pow14", "ring_commit_long", "ring_commit.cu",
+             ring_src + "; " + pallas_src, k7_long["ring_finish"]),
+            ("ring_twist_kind7_2pow14", "ring_twist", "ring_commit.cu", ring_src,
+             k7_long["ring_twist"]),
+            ("ring_accumulate_kind7_2pow14", "ring_accumulate", "ring_commit.cu", ring_src,
+             k7_long["ring_accumulate"]),
+            ("ring_finish_kind7_2pow14", "ring_finish", "ring_commit.cu", ring_src,
+             k7_long["ring_finish"]),
+            ("quotient_q45_stream", "quotient_q45", "quotient.cu", quotient_src,
+             st["stream"]["quotient_q45"]),
+            ("ring_commit_goldilocks_stream", "ring_commit", "ring_commit.cu", ring_src,
+             st["stream"]["ring_commit_goldilocks"]),
+            ("quotient_q45_stream_zk", "quotient_q45_zk", "quotient.cu", quotient_src,
+             st["stream_zk"]["quotient_q45"]),
+            ("ring_commit_goldilocks_stream_zk", "ring_commit_zk", "ring_commit.cu", ring_src,
+             st["stream_zk"]["ring_commit_goldilocks"])):
+        entries.append(dict(name=name, route="cuda", source=f"{src}/{src_file}",
+                            replaces=replaces, launches=launches, **report[rep],
                             library_ms=None))
     print(json.dumps({"kind7": kind7}), flush=True)
+    print(json.dumps({"kind7_2pow14": kind7_long, "launches_kind7_2pow14": k7_long,
+                      "shape_launches_kind7_2pow14": [
+                          [e, list(shape), v, n] for (e, shape, v), n in k7_shapes.items()]}),
+          flush=True)
+    print(json.dumps({"stream": stream, "launches_stream": st}), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)

@@ -12,6 +12,14 @@
 //
 // valid[row] = 1 iff a_t * b_t == c_t at every t (the even-coset residual).
 //
+// A row past one block's shared memory (m > 2^13) takes the long route, a
+// chain of kernel T launches (ntt.cu's four-step) around one elementwise
+// entry here, quotient_pointwise: interpolate a, b, c (inverse, 1/m in the
+// store), psi-twist in the load of the forward transform onto the odd
+// coset, N = a_odd b_odd - c_odd with the residual check (this entry), and
+// the inverse with psi^-k / (m (-2)) in its store. Device memory then sees
+// every intermediate once; ops/quotient.py drives the chain.
+//
 // What bounds it: at m = 4096, B = 256 it moves 7 x 8 MiB but does
 // 7 * 12 * 2048 * 256 = 44 M butterflies with one 64-bit modular product
 // each, so integer instructions, not bytes, bound it. Design: the row lives
@@ -114,3 +122,45 @@ static int launch(const uint64_t* a, const uint64_t* b, const uint64_t* c,
 
 QUOTIENT_ENTRY(quotient_q45, Q45)
 QUOTIENT_ENTRY(quotient_goldilocks, Goldilocks)
+
+// The long route's pointwise step: n = a_odd b_odd - c_odd over rows x 2^log_m
+// words, and valid[row] = 0 where some a_t b_t != c_t (the caller sets
+// valid to 1 first). Block b takes words [b * kChunk, (b + 1) * kChunk) of
+// row b / chunks, so a block's residual flag belongs to one row.
+constexpr int kChunk = 4096;
+
+template <class F>
+__global__ void __launch_bounds__(kThreads) pointwise_kernel(
+    F f, const uint64_t* __restrict__ a_odd, const uint64_t* __restrict__ b_odd,
+    const uint64_t* __restrict__ c_odd, const uint64_t* __restrict__ a,
+    const uint64_t* __restrict__ b, const uint64_t* __restrict__ c,
+    uint64_t* __restrict__ n_out, int32_t* __restrict__ valid, int log_m,
+    int chunks) {
+  const long long row = blockIdx.x / chunks;
+  const int chunk_len = min(kChunk, 1 << log_m);
+  const long long start =
+      (row << log_m) + (long long)(blockIdx.x % chunks) * chunk_len;
+  int bad = 0;
+  for (int i = threadIdx.x; i < chunk_len; i += blockDim.x) {
+    const long long t = start + i;
+    n_out[t] = f.sub(f.mul(a_odd[t], b_odd[t]), c_odd[t]);
+    bad |= f.mul(a[t], b[t]) != c[t];
+  }
+  bad = __syncthreads_or(bad);
+  if (bad && threadIdx.x == 0) valid[row] = 0;
+}
+
+extern "C" int quotient_pointwise(const uint64_t* a_odd, const uint64_t* b_odd,
+                                  const uint64_t* c_odd, const uint64_t* a,
+                                  const uint64_t* b, const uint64_t* c,
+                                  uint64_t* n_out, int32_t* valid, uint64_t q,
+                                  int rows, int log_m, cudaStream_t stream) {
+  return with_field(q, [&](auto f) {
+    const int chunks = log_m > 12 ? 1 << (log_m - 12) : 1;
+    const long long grid = (long long)rows * chunks;
+    if (grid > 0x7FFFFFFFll) return (int)cudaErrorInvalidValue;
+    pointwise_kernel<decltype(f)><<<(unsigned)grid, kThreads, 0, stream>>>(
+        f, a_odd, b_odd, c_odd, a, b, c, n_out, valid, log_m, chunks);
+    return (int)cudaGetLastError();
+  });
+}

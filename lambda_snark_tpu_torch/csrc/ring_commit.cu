@@ -17,6 +17,13 @@
 // instructions bound it. Design: the row stays in shared memory (two
 // buffers of n words) from the first twist to the last add, so device
 // memory sees each input once and the output once.
+//
+// A ring past one block's shared memory (n > 2^13) takes the long route:
+// ring_twist embeds s and multiplies by psi^t, kernel T's four-step
+// (ntt.cu) transforms the k B rows, ring_accumulate forms
+// sum_j A_hat_j o s_hat_j (A_hat in natural order), the inverse four-step
+// folds psi^-t / n into its store, and ring_finish adds e and msg.
+// ops/ring_commit.py drives the chain.
 #include "modmath.cuh"
 
 constexpr int kThreads = 512;
@@ -72,5 +79,83 @@ extern "C" int ring_commit_goldilocks(
   ring_commit_kernel<<<rows, kThreads, smem, stream>>>(
       s, e, msg, msg_len, a_hat_rev, psi, psi_inv_n, tw_fwd, tw_inv, out,
       rows, k, log_n);
+  return (int)cudaGetLastError();
+}
+
+constexpr int kFlatThreads = 256;
+
+static unsigned flat_grid(long long total) {
+  const long long blocks = (total + kFlatThreads - 1) / kFlatThreads;
+  return (unsigned)(blocks < 65536 ? blocks : 65536);
+}
+
+// out[i] = embed(s[i]) psi[i mod n] over k rows x n words.
+__global__ void twist_kernel(const int32_t* __restrict__ s,
+                             const uint64_t* __restrict__ psi,
+                             uint64_t* __restrict__ out, long long total,
+                             int n_mask) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < total; i += (long long)gridDim.x * blockDim.x)
+    out[i] = Goldilocks::mul(embed(s[i]), psi[i & n_mask]);
+}
+
+// acc[r, t] = sum_j s_hat[j, r, t] a_hat[j, t] over rows x n words.
+__global__ void accumulate_kernel(const uint64_t* __restrict__ s_hat,
+                                  const uint64_t* __restrict__ a_hat,
+                                  uint64_t* __restrict__ acc, long long total,
+                                  int k, int n_mask, int log_n) {
+  using G = Goldilocks;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < total; i += (long long)gridDim.x * blockDim.x) {
+    const long long t = i & n_mask;
+    uint64_t v = G::mul(s_hat[i], a_hat[t]);
+    for (int j = 1; j < k; ++j)
+      v = G::add(v, G::mul(s_hat[j * total + i], a_hat[((long long)j << log_n) + t]));
+    acc[i] = v;
+  }
+}
+
+// out[r, t] = x[r, t] + embed(e[r, t]) + msg[r, t] (msg zero past msg_len).
+__global__ void finish_kernel(const uint64_t* __restrict__ x,
+                              const int32_t* __restrict__ e,
+                              const uint64_t* __restrict__ msg, int msg_len,
+                              uint64_t* __restrict__ out, long long total,
+                              int n_mask, int log_n) {
+  using G = Goldilocks;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < total; i += (long long)gridDim.x * blockDim.x) {
+    const long long t = i & n_mask;
+    uint64_t v = G::add(x[i], embed(e[i]));
+    if (t < msg_len) v = G::add(v, msg[(i >> log_n) * msg_len + t]);
+    out[i] = v;
+  }
+}
+
+extern "C" int ring_twist(const int32_t* s, const uint64_t* psi, uint64_t* out,
+                          long long rows, int log_n, cudaStream_t stream) {
+  const long long total = rows << log_n;
+  if (total == 0) return 0;
+  twist_kernel<<<flat_grid(total), kFlatThreads, 0, stream>>>(
+      s, psi, out, total, (1 << log_n) - 1);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ring_accumulate(const uint64_t* s_hat, const uint64_t* a_hat,
+                               uint64_t* acc, long long rows, int k, int log_n,
+                               cudaStream_t stream) {
+  const long long total = rows << log_n;
+  if (total == 0) return 0;
+  accumulate_kernel<<<flat_grid(total), kFlatThreads, 0, stream>>>(
+      s_hat, a_hat, acc, total, k, (1 << log_n) - 1, log_n);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ring_finish(const uint64_t* x, const int32_t* e,
+                           const uint64_t* msg, int msg_len, uint64_t* out,
+                           long long rows, int log_n, cudaStream_t stream) {
+  const long long total = rows << log_n;
+  if (total == 0) return 0;
+  finish_kernel<<<flat_grid(total), kFlatThreads, 0, stream>>>(
+      x, e, msg, msg_len, out, total, (1 << log_n) - 1, log_n);
   return (int)cudaGetLastError();
 }

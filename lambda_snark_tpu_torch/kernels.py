@@ -1,7 +1,7 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
 Each source in ``csrc/`` (``quotient.cu`` kernel Q, ``ring_commit.cu``
-kernel R, ``keccak.cu`` kernel K, ``ntt_goldilocks.cu`` kernel N) is compiled by
+kernel R, ``keccak.cu`` kernel K, ``ntt.cu`` kernels N and T) is compiled by
 ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface and
 loaded with ``ctypes``; nothing includes PyTorch's headers. Libraries go to
 ``build/torch_kernels/<digest>/`` beside the package, keyed by a digest of
@@ -10,9 +10,11 @@ source, all started together. ``nvcc -Xptxas -v`` output (registers, shared
 memory, spills) is kept beside each library as ``lib<name>.log``.
 
 ``LAUNCHES`` counts kernel launches per C entry (the names in
-``PROTOTYPES``): each wrapper adds, where it calls an entry, the number of
-kernels that entry launches (two for ``ntt_goldilocks_forward``, one pass
-each; one for every other entry), and nowhere else.
+``PROTOTYPES``), the shape of the entry's input and a variant (a
+transform's direction and modulus): each wrapper calls ``count`` where it
+calls an entry, with the number of kernels that entry launches (two for
+``ntt_four_step``, one pass each; one for every other entry), and nowhere
+else. ``launches()`` sums them per C entry.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 PACKAGE_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
@@ -31,7 +33,7 @@ SOURCES = {
     "quotient": "quotient.cu",
     "ring_commit": "ring_commit.cu",
     "keccak": "keccak.cu",
-    "ntt_goldilocks": "ntt_goldilocks.cu",
+    "ntt": "ntt.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -47,29 +49,46 @@ PROTOTYPES = {
     "quotient": {
         "quotient_q45": _QUOTIENT_ARGS,
         "quotient_goldilocks": _QUOTIENT_ARGS,
+        "quotient_pointwise": [_P] * 8 + [_U64, _I, _I, _P],
     },
     "ring_commit": {
         "ring_commit_goldilocks": [_P, _P, _P, _I] + [_P] * 6 + [_I, _I, _I, _P],
+        "ring_twist": [_P, _P, _P, _I64, _I, _P],
+        "ring_accumulate": [_P, _P, _P, _I64, _I, _I, _P],
+        "ring_finish": [_P, _P, _P, _I, _P, _I64, _I, _P],
     },
     "keccak": {
         "keccak_leaves": [_P, _P, _I, _I, _P],
         "keccak_group_leaves": [_P, _P, _I, _I, _I, _P],
         "keccak_nodes": [_P, _P, _I64, _P],
     },
-    "ntt_goldilocks": {
-        "ntt_goldilocks_forward": [_P] * 6 + [_I, _I, _I, _P],
-        "ntt_goldilocks_rows": [_P, _P, _P, _I, _I, _P],
+    "ntt": {
+        "ntt_four_step": [_P] * 8 + [_U64, _U64, _I, _I, _I, _P],
+        "ntt_rows": [_P, _P, _P, _U64, _U64, _I, _I, _P],
     },
 }
 
-LAUNCHES: Dict[str, int] = {fn: 0 for entries in PROTOTYPES.values() for fn in entries}
+LAUNCHES: Dict[Tuple[str, Tuple[int, ...], str], int] = {}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
+def count(entry: str, launches: int, shape, variant: str = "") -> None:
+    """Record ``launches`` kernels of C entry ``entry`` on an input of ``shape``."""
+    key = (entry, tuple(shape), variant)
+    LAUNCHES[key] = LAUNCHES.get(key, 0) + launches
+
+
+def launches() -> Dict[str, int]:
+    """Launches per C entry since the last reset, 0 for an entry not launched."""
+    out = {fn: 0 for entries in PROTOTYPES.values() for fn in entries}
+    for (entry, _, _), n in LAUNCHES.items():
+        out[entry] += n
+    return out
+
+
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    LAUNCHES.clear()
 
 
 def _nvcc() -> str:

@@ -141,7 +141,7 @@ def _leaves(vals: torch.Tensor, paired: bool) -> torch.Tensor:
             entry, rc = "keccak_group_leaves", lib.keccak_group_leaves(
                 vals.data_ptr(), out.data_ptr(), t, g, n // 2, stream)
     kernels.check(rc, f"kernel K ({entry})")
-    kernels.LAUNCHES[entry] += 1
+    kernels.count(entry, 1, vals.shape)
     return out
 
 
@@ -171,7 +171,7 @@ def hash_nodes(level: torch.Tensor) -> torch.Tensor:
         rc = fn(level.data_ptr(), out.data_ptr(), t * (rows // 2),
                 torch.cuda.current_stream().cuda_stream)
     kernels.check(rc, "kernel K (keccak_nodes)")
-    kernels.LAUNCHES["keccak_nodes"] += 1
+    kernels.count("keccak_nodes", 1, level.shape)
     return out
 
 

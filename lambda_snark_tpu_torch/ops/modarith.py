@@ -77,14 +77,14 @@ def mul_wide(a, b) -> List[torch.Tensor]:
     return [digits[2 * i] | (digits[2 * i + 1] << 16) for i in range(4)]
 
 
-def _check(q: int) -> None:
+def check_modulus(q: int) -> None:
     if q != GOLDILOCKS and not 1 < q < _SMALL_Q:
         raise ValueError(f"unsupported modulus {q}: Goldilocks or q < 2^47 only")
 
 
 def add_mod(a: torch.Tensor, b: torch.Tensor, q: int) -> torch.Tensor:
     """(a + b) mod q for canonical a, b."""
-    _check(q)
+    check_modulus(q)
     if q != GOLDILOCKS:
         s = a + b
         return torch.where(s >= q, s - q, s)
@@ -103,7 +103,7 @@ def add_mod(a: torch.Tensor, b: torch.Tensor, q: int) -> torch.Tensor:
 
 def sub_mod(a: torch.Tensor, b: torch.Tensor, q: int) -> torch.Tensor:
     """(a - b) mod q for canonical a, b."""
-    _check(q)
+    check_modulus(q)
     if q != GOLDILOCKS:
         d = a - b
         return torch.where(d < 0, d + q, d)
@@ -147,7 +147,7 @@ def _reduce_small(t: Sequence[torch.Tensor], q: int) -> torch.Tensor:
 
 def mul_mod(a, b, q: int) -> torch.Tensor:
     """(a * b) mod q for canonical words (or Python ints) a, b."""
-    _check(q)
+    check_modulus(q)
     t = mul_wide(a, b)
     if q == GOLDILOCKS:
         return _reduce_goldilocks(t)

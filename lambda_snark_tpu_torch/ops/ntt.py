@@ -14,6 +14,7 @@ them with a stride.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -49,6 +50,7 @@ class NttPlan:
 
     m: int
     q: int
+    omega: int
     inv_m: int
     rev: torch.Tensor  # (m,) bit-reversal gather indices
     tw: torch.Tensor  # (m/2,) omega^e
@@ -69,12 +71,22 @@ class NttPlan:
             psi_pows = words(powers(psi, m, q))
             psi_inv_n = words(powers(field.mod_inverse(psi, q), m, q, scale=inv_m))
         return NttPlan(
-            m=m, q=q, inv_m=inv_m,
+            m=m, q=q, omega=omega, inv_m=inv_m,
             rev=bitrev(m).to(device),
             tw=words(powers(omega, m // 2, q)),
             tw_inv=words(powers(omega_inv, m // 2, q)),
             psi_pows=psi_pows, psi_inv_n=psi_inv_n,
         )
+
+    @functools.cached_property
+    def large(self):
+        """The four-step plan (``ops.ntt_large.NttLargePlan``) of the same
+        transform, built at first use: kernel T's route past 2^13 points,
+        shared by ``ops.ntt_batched`` and the long routes of ``ops.quotient``
+        and ``ops.ring_commit``."""
+        from .ntt_large import NttLargePlan
+
+        return NttLargePlan.create(self.m, self.omega, self.tw.device, q=self.q)
 
 
 def _transform(plan: NttPlan, x: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:

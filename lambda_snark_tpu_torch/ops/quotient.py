@@ -11,7 +11,11 @@ Kernel Q replaces the TPU kernels ``quotient_batch_fused``
 (ops/quotient_pallas.py:143) and ``quotient_batch_mxu``
 (ops/ntt_mxu_q45.py:466) for the 44-bit field and the Goldilocks field.
 ``quotient`` launches it for CUDA tensors and runs ``quotient_plain`` for
-CPU tensors.
+CPU tensors. Kernel Q keeps a row in shared memory (m <= 2^13); a longer row
+(Goldilocks, whose 2-adicity is 32; the 44-bit field stops at m = 2^12)
+takes the long route on the card: kernel T's four-step for the three
+transforms, with the twist folded into a load and the untwist into a store,
+around kernel Q's elementwise entry ``quotient_pointwise``.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from .ntt import (
     ntt_inverse_negacyclic,
     powers,
 )
+from .ntt_large import check_rows, ntt_forward_large, ntt_inverse_large
 
 _MAX_LOG_M = 13  # two rows of 2^13 words fill 128 KiB of shared memory
 
@@ -90,7 +95,7 @@ def quotient(plan: QuotientPlan, a, b, c):
         raise ValueError(f"unsupported device {a.device}")
     log_m = plan.m.bit_length() - 1
     if log_m > _MAX_LOG_M:
-        raise ValueError(f"kernel Q takes m <= 2^{_MAX_LOG_M}, got m = {plan.m}")
+        return quotient_long(plan, a, b, c)
     if plan.q == modarith.Q45:
         entry = "quotient_q45"
     elif plan.q == modarith.GOLDILOCKS:
@@ -110,5 +115,54 @@ def quotient(plan: QuotientPlan, a, b, c):
                 plan.twist.data_ptr(), plan.untwist.data_ptr(), plan.ntt.inv_m,
                 *(o.data_ptr() for o in outs), valid.data_ptr(), rows, log_m, stream)
     kernels.check(rc, "kernel Q (quotient)")
-    kernels.LAUNCHES[entry] += 1
+    kernels.count(entry, 1, a.shape)
     return (*outs, valid.bool())
+
+
+def quotient_pointwise_plain(q: int, a_odd, b_odd, c_odd, a, b, c):
+    """The same function as ``quotient_pointwise``, from ``ops.modarith``."""
+    n_odd = modarith.sub_mod(modarith.mul_mod(a_odd, b_odd, q), c_odd, q)
+    return n_odd, (modarith.mul_mod(a, b, q) == c).all(dim=-1)
+
+
+def quotient_pointwise(q: int, a_odd, b_odd, c_odd, a, b, c):
+    """(n = a_odd b_odd - c_odd, valid (B,) bool: a_t b_t == c_t everywhere)
+    for contiguous (B, m) words, m a power of two: kernel Q's
+    ``quotient_pointwise`` entry on CUDA tensors, its plain twin on CPU
+    tensors."""
+    modarith.check_modulus(q)
+    m = a.shape[1] if a.dim() == 2 else 0
+    if m < 1 or m & (m - 1):
+        raise ValueError(f"expected (B, m) words with m a power of two, got {tuple(a.shape)}")
+    for x in (a_odd, b_odd, c_odd, a, b, c):
+        check_rows(x, m, a.device)
+        if x.shape != a.shape:
+            raise ValueError("the six inputs must share one shape")
+    if a.device.type == "cpu":
+        return quotient_pointwise_plain(q, a_odd, b_odd, c_odd, a, b, c)
+    rows = a.shape[0]
+    n_odd = torch.empty_like(a)
+    valid = torch.ones(rows, dtype=torch.int32, device=a.device)
+    if rows:
+        fn = kernels.load("quotient").quotient_pointwise
+        with torch.cuda.device(a.device):
+            rc = fn(*(t.data_ptr() for t in (a_odd, b_odd, c_odd, a, b, c, n_odd, valid)), q,
+                    rows, m.bit_length() - 1, torch.cuda.current_stream().cuda_stream)
+        kernels.check(rc, "kernel Q (pointwise)")
+        kernels.count("quotient_pointwise", 1, a.shape)
+    return n_odd, valid.bool()
+
+
+def quotient_long(plan: QuotientPlan, a, b, c):
+    """The long route (m > 2^13): interpolate a, b, c (inverse four-step),
+    move them onto the odd coset (forward four-step, psi^t in its load),
+    N = a_odd b_odd - c_odd and the residual flags (``quotient_pointwise``),
+    Q = iNTT(N) psi^-k / (-2) (the untwist in the last store). The card runs
+    it from ``quotient``; on CPU tensors every step is its plain twin."""
+    rows, large = a.shape[0], plan.ntt.large
+    polys = ntt_inverse_large(large, torch.cat([a, b, c]))  # (3B, m)
+    odd = ntt_forward_large(large, polys, pre=plan.ntt.psi_pows)
+    n_odd, valid = quotient_pointwise(plan.q, odd[:rows], odd[rows:2 * rows],
+                                      odd[2 * rows:], a, b, c)
+    q_coeffs = ntt_inverse_large(large, n_odd, post=plan.untwist, scale=1)  # untwist has 1/m
+    return (q_coeffs, polys[:rows], polys[rows:2 * rows], polys[2 * rows:], valid)

@@ -8,7 +8,11 @@ randomness s (k, B, n) and e (B, n) int32, and messages msg (B, L) int64
 words with L <= n (zero beyond L). Kernel R replaces the TPU kernels
 ``commit_batch_mxu`` (ops/ring_mxu.py:229) and ``fused_commit``
 (ops/ring_pallas.py:230). ``ring_commit`` launches it for CUDA tensors and
-runs ``ring_commit_plain`` for CPU tensors.
+runs ``ring_commit_plain`` for CPU tensors. Kernel R keeps a row in shared
+memory (n <= 2^13); a larger ring takes the long route on the card
+(``ring_commit_long``): kernel R's elementwise entries ``ring_twist``,
+``ring_accumulate`` and ``ring_finish`` around kernel T's four-step, with
+the untwist psi^-t / n folded into the inverse's store.
 """
 
 from __future__ import annotations
@@ -21,9 +25,10 @@ import torch
 from .. import kernels
 from . import modarith
 from .ntt import NttPlan, bitrev, ntt_forward_negacyclic, ntt_inverse_negacyclic
+from .ntt_large import ntt_forward_large, ntt_inverse_large
 
 P = modarith.GOLDILOCKS
-_MAX_LOG_N = 13
+_MAX_LOG_N = 13  # two rows of 2^13 words fill 128 KiB of shared memory
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -64,19 +69,26 @@ def ring_commit_plain(plan: RingCommitPlan, s, e, msg):
     )
 
 
-def _check_inputs(plan: RingCommitPlan, s, e, msg) -> None:
+def _check(plan: RingCommitPlan, x, what: str, dtype, shape) -> None:
+    if x.dtype != dtype or tuple(x.shape) != shape:
+        raise ValueError(f"{what} must be {shape} {dtype}, got {x.dtype} {tuple(x.shape)}")
+    if x.device != plan.a_hat.device:
+        raise ValueError(f"{what} must lie on the plan's device")
+    if not x.is_contiguous():
+        raise ValueError(f"{what} must be contiguous")
+
+
+def _check_tail(plan: RingCommitPlan, e, msg) -> None:
+    """e (B, n) int32 and msg (B, L <= n) int64 words, B = e's rows."""
     rows = e.shape[0] if e.dim() == 2 else -1
-    if s.dtype != torch.int32 or tuple(s.shape) != (plan.k, rows, plan.n):
-        raise ValueError(f"s must be ({plan.k}, B, {plan.n}) int32, got {s.dtype} {tuple(s.shape)}")
-    if e.dtype != torch.int32 or tuple(e.shape) != (rows, plan.n):
-        raise ValueError(f"e must be (B, {plan.n}) int32, got {e.dtype} {tuple(e.shape)}")
-    if msg.dtype != torch.int64 or msg.dim() != 2 or msg.shape[0] != rows or msg.shape[1] > plan.n:
-        raise ValueError(f"msg must be (B, L <= {plan.n}) int64 words, got {msg.dtype} {tuple(msg.shape)}")
-    for x in (s, e, msg):
-        if x.device != plan.a_hat.device:
-            raise ValueError("s, e, msg must lie on the plan's device")
-        if not x.is_contiguous():
-            raise ValueError("inputs must be contiguous")
+    _check(plan, e, "e", torch.int32, (rows, plan.n))
+    length = msg.shape[1] if msg.dim() == 2 else -1
+    _check(plan, msg, "msg", torch.int64, (rows, min(length, plan.n)))
+
+
+def _check_inputs(plan: RingCommitPlan, s, e, msg) -> None:
+    _check_tail(plan, e, msg)
+    _check(plan, s, "s", torch.int32, (plan.k, e.shape[0], plan.n))
 
 
 def ring_commit(plan: RingCommitPlan, s, e, msg):
@@ -86,9 +98,9 @@ def ring_commit(plan: RingCommitPlan, s, e, msg):
         return ring_commit_plain(plan, s, e, msg)
     if s.device.type != "cuda":
         raise ValueError(f"unsupported device {s.device}")
+    if plan.n > 1 << _MAX_LOG_N:
+        return ring_commit_long(plan, s, e, msg)
     log_n = plan.n.bit_length() - 1
-    if log_n > _MAX_LOG_N:
-        raise ValueError(f"kernel R takes n <= 2^{_MAX_LOG_N}, got n = {plan.n}")
     rows = e.shape[0]
     out = torch.empty((rows, plan.n), dtype=torch.int64, device=s.device)
     if rows == 0:
@@ -101,5 +113,78 @@ def ring_commit(plan: RingCommitPlan, s, e, msg):
                 plan.ntt.psi_inv_n.data_ptr(), plan.ntt.tw.data_ptr(),
                 plan.ntt.tw_inv.data_ptr(), out.data_ptr(), rows, plan.k, log_n, stream)
     kernels.check(rc, "kernel R (ring commit)")
-    kernels.LAUNCHES["ring_commit_goldilocks"] += 1
+    kernels.count("ring_commit_goldilocks", 1, e.shape)
     return out
+
+
+def _launch(entry: str, *args) -> None:
+    fn = getattr(kernels.load("ring_commit"), entry)
+    with torch.cuda.device(args[0].device):
+        rc = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args),
+                torch.cuda.current_stream().cuda_stream)
+    kernels.check(rc, f"kernel R ({entry})")
+    kernels.count(entry, 1, args[0].shape)
+
+
+def ring_twist_plain(plan: RingCommitPlan, s) -> torch.Tensor:
+    return modarith.mul_mod(embed_signed(s), plan.ntt.psi_pows, P)
+
+
+def ring_twist(plan: RingCommitPlan, s) -> torch.Tensor:
+    """(k, B, n) small signed int32 -> their Z_p words times psi^t."""
+    _check(plan, s, "s", torch.int32, (plan.k, s.shape[1] if s.dim() == 3 else -1, plan.n))
+    if s.device.type == "cpu":
+        return ring_twist_plain(plan, s)
+    out = torch.empty(s.shape, dtype=torch.int64, device=s.device)
+    _launch("ring_twist", s, plan.ntt.psi_pows, out, s.numel() // plan.n,
+            plan.n.bit_length() - 1)
+    return out
+
+
+def ring_accumulate_plain(plan: RingCommitPlan, s_hat) -> torch.Tensor:
+    acc = modarith.mul_mod(s_hat[0], plan.a_hat[0], P)
+    for j in range(1, plan.k):
+        acc = modarith.add_mod(acc, modarith.mul_mod(s_hat[j], plan.a_hat[j], P), P)
+    return acc
+
+
+def ring_accumulate(plan: RingCommitPlan, s_hat) -> torch.Tensor:
+    """(k, B, n) NTT-domain words -> sum_j A_hat_j o s_hat_j, (B, n)."""
+    _check(plan, s_hat, "s_hat", torch.int64,
+           (plan.k, s_hat.shape[1] if s_hat.dim() == 3 else -1, plan.n))
+    if s_hat.device.type == "cpu":
+        return ring_accumulate_plain(plan, s_hat)
+    rows = s_hat.shape[1]
+    out = torch.empty((rows, plan.n), dtype=torch.int64, device=s_hat.device)
+    _launch("ring_accumulate", s_hat, plan.a_hat, out, rows, plan.k, plan.n.bit_length() - 1)
+    return out
+
+
+def ring_finish_plain(plan: RingCommitPlan, x, e, msg) -> torch.Tensor:
+    c = modarith.add_mod(x, embed_signed(e), P)
+    length = msg.shape[1]
+    return torch.cat([modarith.add_mod(c[:, :length], msg, P), c[:, length:]], dim=1)
+
+
+def ring_finish(plan: RingCommitPlan, x, e, msg) -> torch.Tensor:
+    """x (B, n) + embedded e (B, n) + msg (B, L), zero past L."""
+    _check_tail(plan, e, msg)
+    _check(plan, x, "x", torch.int64, tuple(e.shape))
+    if x.device.type == "cpu":
+        return ring_finish_plain(plan, x, e, msg)
+    out = torch.empty_like(x)
+    _launch("ring_finish", x, e, msg, msg.shape[1], out, x.shape[0], plan.n.bit_length() - 1)
+    return out
+
+
+def ring_commit_long(plan: RingCommitPlan, s, e, msg) -> torch.Tensor:
+    """The long route (n > 2^13): twist, forward four-step of the k B rows,
+    the A_hat accumulation, the inverse four-step with psi^-t / n in its
+    store, + e + msg. The card runs it from ``ring_commit``; on CPU tensors
+    every step is its plain twin."""
+    k, rows, n = s.shape
+    large = plan.ntt.large
+    s_hat = ntt_forward_large(large, ring_twist(plan, s).reshape(k * rows, n))
+    acc = ring_accumulate(plan, s_hat.reshape(k, rows, n))
+    x = ntt_inverse_large(large, acc, post=plan.ntt.psi_inv_n, scale=1)  # psi_inv_n has 1/n
+    return ring_finish(plan, x, e, msg)

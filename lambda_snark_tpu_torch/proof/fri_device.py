@@ -29,7 +29,8 @@ import torch
 from ..core import field
 from ..core.errors import DomainError
 from ..ops import keccak, modarith
-from ..ops.ntt_large import MAX_LEAF_LEN, NttLargePlan, dft_plan, dft_rows, ntt_forward_large
+from ..ops.ntt import NttPlan
+from ..ops.ntt_batched import ntt_forward_batched
 from .fri import (
     FriParams,
     FriProof,
@@ -211,16 +212,13 @@ _FINAL_CACHE: dict = {}
 
 
 def _final_tables(n: int, off: int, om: int, device):
-    """The n-point transform with root om^-1 (kernel N's leaf up to
-    MAX_LEAF_LEN points, its four-step above) and the untwist off^-i / n."""
+    """The n-point transform with root om^-1 (kernel T: its row entry up to
+    2^13 points, its four-step above) and the untwist off^-i / n."""
     key = (n, off, om, str(device))
     if key not in _FINAL_CACHE:
         om_inv = field.mod_inverse(om, P)
-        if n <= MAX_LEAF_LEN:
-            transform = functools.partial(dft_rows, dft_plan(n, om_inv, device))
-        else:
-            transform = functools.partial(ntt_forward_large,
-                                          NttLargePlan.create(n, om_inv, device))
+        transform = functools.partial(ntt_forward_batched,
+                                      NttPlan.create(n, P, om_inv, device=device))
         untwist = _gl_powers(field.mod_inverse(off, P), n, scale=field.mod_inverse(n, P))
         _FINAL_CACHE[key] = (transform, _words(untwist, device))
     return _FINAL_CACHE[key]

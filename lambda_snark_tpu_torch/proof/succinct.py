@@ -43,6 +43,9 @@ _MAGIC = b"LSNKTPU1"
 KIND_R1CS_SUCCINCT = 7
 WIRE_VERSION = 4
 
+_ZK_NOT_PORTED = ("zero-knowledge kind 7 (zk=True) is not ported yet "
+                  "(ROADMAP queue A.2); the port proves non-ZK kind 7")
+
 #: Verifier-side cap on the prover-chosen mask length.
 _MASK_LEN_CAP = 4096
 
@@ -203,12 +206,19 @@ def _check_instance(r1cs: R1CS, params: FriParams, mask_len: int) -> Tuple[int, 
 
 
 def prove_r1cs_succinct(r1cs: R1CS, witness: Sequence[int], ctx: LweContext, seed: int,
-                        fri_params: Optional[FriParams] = None,
-                        device="cuda") -> SuccinctProofR1CS:
+                        zk: bool = False, fri_params: Optional[FriParams] = None,
+                        blinding_seed: Optional[int] = None, rng=None,
+                        device_lde: bool = False, device="cuda") -> SuccinctProofR1CS:
     """One non-ZK kind-7 proof: the batch prover on a batch of one (the JAX
-    package pins the two byte-equal)."""
+    package pins the two byte-equal). The parameters are the JAX package's,
+    in its order, then ``device``. ``zk=True`` (with ``blinding_seed`` or
+    ``rng``) raises NotImplementedError: ZK kind 7 is not ported yet.
+    ``device_lde`` chooses a route in the JAX package whose bytes are the
+    same either way; the port has the one route."""
     from .succinct_batch import prove_r1cs_succinct_batch
 
+    if zk:
+        raise NotImplementedError(_ZK_NOT_PORTED)
     return prove_r1cs_succinct_batch(r1cs, [witness], ctx, [seed], fri_params=fri_params,
                                      device=device)[0]
 

@@ -33,6 +33,7 @@ from ..transcript.challenge import derive_dual
 from . import fri_device
 from .fri import FriParams, coset_offset, root_of_order
 from .succinct import (
+    _ZK_NOT_PORTED,
     SuccinctProofR1CS,
     _check_instance,
     _roots_to_words,
@@ -128,17 +129,27 @@ def _device_frontend(r1cs, witnesses, ctx, seeds, params, device):
 
 
 def prove_r1cs_succinct_batch(r1cs: R1CS, witnesses: Sequence[Sequence[int]],
-                              ctx: LweContext, seeds: Sequence[int],
+                              ctx: LweContext, seeds: Sequence[int], zk: bool = False,
                               fri_params: Optional[FriParams] = None,
+                              blinding_seeds: Optional[Sequence[int]] = None,
+                              device_lde: bool = True, pipeline_chunk: Optional[int] = None,
                               device="cuda") -> List[SuccinctProofR1CS]:
     """Non-ZK kind-7 proofs for a batch of witnesses of one circuit, one
     commit seed each; byte-identical to the JAX package's
     ``prove_r1cs_succinct_batch`` and ``prove_r1cs_succinct``. Runs on the
-    card unless ``device="cpu"`` (every kernel as its plain twin)."""
+    card unless ``device="cpu"`` (every kernel as its plain twin).
+
+    The parameters are the JAX package's, in its order, then ``device``.
+    ``zk=True`` raises NotImplementedError (ZK kind 7 is ROADMAP queue A.2).
+    ``device_lde`` and ``pipeline_chunk`` choose routes in the JAX package
+    that give the same bytes; the port proves the whole batch on its one
+    device route."""
     params = fri_params or FriParams()
     params.validate()
     if len(seeds) != len(witnesses):
         raise InvalidDimensionsError("need one seed per witness")
+    if zk:
+        raise NotImplementedError(_ZK_NOT_PORTED)
     dev = resolve(device)
     if len(witnesses) == 0:
         return []

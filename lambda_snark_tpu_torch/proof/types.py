@@ -1,10 +1,12 @@
-"""R1CS proof containers and their wire bytes (the port's copy of
-``ProofR1CS``, ``ProofR1csZk`` and ``EvalOpening`` from ``proof/types.py``).
+"""R1CS proof containers and their wire bytes, both ways (the port's copy
+of ``ProofR1CS``, ``ProofR1csZk``, ``EvalOpening`` and ``deserialize_any``
+from the JAX package's ``proof/types.py``).
 
-    magic "LSNKTPU1" | kind u8 (2 plain, 3 ZK) | modulus u64 | body
+    magic "LSNKTPU1" | kind u8 | modulus u64 | body
 
-The JAX package reads these bytes back (``deserialize_any``) and verifies
-them (``verify_r1cs``).
+Kinds 2 (plain, v1 transcript), 6 (plain, v3 transcript bound to the
+circuit digest) and 3 (ZK) live here; kind 7 is ``proof.succinct``. The JAX
+package and the port read each other's bytes.
 """
 
 from __future__ import annotations
@@ -13,18 +15,79 @@ import dataclasses
 import struct
 from typing import List
 
+import numpy as np
+
 from ..commit.lwe import Commitment
+from ..core.errors import SerializationError
 from ..transcript.challenge import Challenge
 
 _MAGIC = b"LSNKTPU1"
 _KIND_R1CS = 2
 _KIND_R1CS_ZK = 3
+_KIND_R1CS_V3 = 6  # the v1 body, circuit-digest-bound transcript
+_KIND_SUCCINCT = 7
+
+#: Kinds the JAX package decodes and the port does not yet, with the
+#: ROADMAP queue item that ports them.
+_NOT_PORTED = {
+    1: "simple proofs (ROADMAP A.3, prover.prove_simple)",
+    4: "compact proofs (ROADMAP A.3, proof/compact.py)",
+    5: "compact ZK proofs (ROADMAP A.3, proof/compact.py)",
+    8: "aggregated proofs (ROADMAP A.4, proof/aggregate.py)",
+    9: "committed-witness proofs (ROADMAP A.4, proof/succinct_witness.py)",
+}
 
 
 def _pack_words(words) -> bytes:
     return struct.pack("<Q", len(words)) + b"".join(
         struct.pack("<Q", int(w) & ((1 << 64) - 1)) for w in words
     )
+
+
+class _Reader:
+    """Bounds-checked little-endian reads over proof bytes."""
+
+    def __init__(self, data: bytes) -> None:
+        self.data = data
+        self.off = 0
+
+    def bytes_(self, n: int) -> bytes:
+        b = self.data[self.off: self.off + n]
+        if len(b) != n:
+            raise SerializationError("truncated proof data")
+        self.off += n
+        return b
+
+    def u64(self) -> int:
+        return struct.unpack("<Q", self.bytes_(8))[0]
+
+    def u8(self) -> int:
+        return self.bytes_(1)[0]
+
+    def words(self) -> List[int]:
+        n = self.u64()
+        if n > (1 << 32):
+            raise SerializationError("unreasonable word-vector length")
+        return list(struct.unpack(f"<{n}Q", self.bytes_(8 * n)))
+
+    def commitment(self) -> Commitment:
+        return Commitment(np.array(self.words(), dtype=np.uint64))
+
+    def challenge(self) -> Challenge:
+        return Challenge.from_bytes(self.bytes_(40))
+
+    def evals(self):
+        return struct.unpack("<8Q", self.bytes_(64))
+
+
+def _header(data: bytes, kinds) -> _Reader:
+    r = _Reader(data)
+    if r.bytes_(8) != _MAGIC:
+        raise SerializationError("bad proof magic")
+    kind = r.u8()
+    if kind not in kinds:
+        raise SerializationError(f"unexpected proof kind {kind}")
+    return r
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,6 +99,11 @@ class EvalOpening:
 
     def to_bytes(self) -> bytes:
         return struct.pack("<Q", self.evaluation) + _pack_words(self.witness)
+
+    @staticmethod
+    def read(r: _Reader) -> "EvalOpening":
+        ev = r.u64()
+        return EvalOpening(evaluation=ev, witness=r.words())
 
 
 def _body(commitment: Commitment, evals, ch_a: Challenge, ch_b: Challenge,
@@ -64,13 +132,27 @@ class ProofR1CS:
     opening_alpha: EvalOpening
     opening_beta: EvalOpening
     modulus: int
+    transcript_v: int = 1  # 1: the reference's transcript; 3: circuit-digest-bound
 
     def to_bytes(self) -> bytes:
         evals = (self.q_alpha, self.q_beta, self.a_z_alpha, self.b_z_alpha,
                  self.c_z_alpha, self.a_z_beta, self.b_z_beta, self.c_z_beta)
         body = _body(self.commitment_q, evals, self.challenge_alpha,
                      self.challenge_beta, self.opening_alpha, self.opening_beta)
-        return _MAGIC + bytes([_KIND_R1CS]) + struct.pack("<Q", self.modulus) + body
+        kind = _KIND_R1CS_V3 if self.transcript_v == 3 else _KIND_R1CS
+        return _MAGIC + bytes([kind]) + struct.pack("<Q", self.modulus) + body
+
+    @staticmethod
+    def from_bytes(data: bytes) -> "ProofR1CS":
+        r = _header(data, (_KIND_R1CS, _KIND_R1CS_V3))
+        kind = data[8]
+        modulus = r.u64()
+        comm = r.commitment()
+        ch_a, ch_b = r.challenge(), r.challenge()
+        evals = r.evals()
+        op_a, op_b = EvalOpening.read(r), EvalOpening.read(r)
+        return ProofR1CS(comm, ch_a, ch_b, *evals, op_a, op_b, modulus,
+                         transcript_v=3 if kind == _KIND_R1CS_V3 else 1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,3 +183,37 @@ class ProofR1csZk:
                      self.challenge_beta, self.opening_alpha, self.opening_beta,
                      blinding=self.blinding_factor)
         return _MAGIC + bytes([_KIND_R1CS_ZK]) + struct.pack("<Q", self.modulus) + body
+
+    @staticmethod
+    def from_bytes(data: bytes) -> "ProofR1csZk":
+        r = _header(data, (_KIND_R1CS_ZK,))
+        modulus = r.u64()
+        comm = r.commitment()
+        blinding = r.u64()
+        ch_a, ch_b = r.challenge(), r.challenge()
+        evals = r.evals()
+        op_a, op_b = EvalOpening.read(r), EvalOpening.read(r)
+        return ProofR1csZk(comm, blinding, ch_a, ch_b, *evals, op_a, op_b, modulus)
+
+
+def deserialize_any(data: bytes):
+    """Decode proof bytes by their kind byte: 2, 3, 6 and 7. The kinds the
+    port does not decode yet raise SerializationError naming the queue item
+    that ports them; bad magic and unknown kinds raise as in the JAX
+    package."""
+    if len(data) < 9 or data[:8] != _MAGIC:
+        raise SerializationError("bad proof magic")
+    kind = data[8]
+    if kind in (_KIND_R1CS, _KIND_R1CS_V3):
+        return ProofR1CS.from_bytes(data)
+    if kind == _KIND_R1CS_ZK:
+        return ProofR1csZk.from_bytes(data)
+    if kind == _KIND_SUCCINCT:
+        # imported here, as the JAX package does: proof.succinct imports
+        # utils.artifacts, which imports this module
+        from .succinct import SuccinctProofR1CS
+
+        return SuccinctProofR1CS.from_bytes(data)
+    if kind in _NOT_PORTED:
+        raise SerializationError(f"proof kind {kind}: {_NOT_PORTED[kind]} are not ported yet")
+    raise SerializationError(f"unknown proof kind {kind}")

@@ -3,7 +3,7 @@
 ``Domain.select`` picks the roots domain H = {w^i} with Z_H = X^m - 1 for
 the Goldilocks modulus and for the 44-bit field with m in the root table;
 any other (q, m) gets the sequential domain {0..m-1}, which the batched
-prover rejects.
+prover rejects and the verifiers take.
 """
 
 from __future__ import annotations
@@ -52,9 +52,12 @@ class Domain:
         return Domain.sequential(m, modulus)
 
     def eval_vanishing(self, x: int) -> int:
-        """Z_H(x) = x^m - 1 on a roots domain (the only kind the batched
-        prover takes)."""
-        if self.kind != ROOTS:
-            raise DomainError("the port evaluates Z_H on roots domains only")
+        """Z_H(x): x^m - 1 on a roots domain, prod_i (x - i) on the
+        sequential one (the verifiers take both)."""
         q = self.modulus
-        return field.sub_mod(field.mod_pow(x, self.m, q), 1, q)
+        if self.kind == ROOTS:
+            return field.sub_mod(field.mod_pow(x, self.m, q), 1, q)
+        result = 1
+        for i in range(self.m):
+            result = field.mul_mod(result, field.sub_mod(x, i % q, q), q)
+        return result

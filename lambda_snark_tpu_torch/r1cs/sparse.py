@@ -82,6 +82,9 @@ class SparseMatrix:
         return out
 
     def _stage(self, modulus: int, device: torch.device):
+        """Column indices, values mod q and, for each p, the entries that
+        are the p-th of their row with those rows, on ``device``; built on
+        the host once, so ``mul_batch`` never waits for the device."""
         key = (modulus, str(device))
         if key not in self._staged:
             ptr = np.asarray(self.row_ptr, dtype=np.int64)
@@ -90,20 +93,21 @@ class SparseMatrix:
             pos = np.arange(self.nnz(), dtype=np.int64) - ptr[row_of]
             vals = modarith.to_words([v % modulus for v in self.values], device)
             to_dev = lambda a: torch.from_numpy(a).to(device)
-            self._staged[key] = (to_dev(row_of), to_dev(pos),
-                                 to_dev(np.asarray(self.col_indices, dtype=np.int64)),
-                                 vals, int(counts.max(initial=0)))
+            groups = []
+            for p in range(int(counts.max(initial=0))):
+                sel = np.flatnonzero(pos == p)
+                groups.append((to_dev(sel), to_dev(row_of[sel])))
+            self._staged[key] = (to_dev(np.asarray(self.col_indices, dtype=np.int64)),
+                                 vals, groups)
         return self._staged[key]
 
     def mul_batch(self, w: torch.Tensor, modulus: int) -> torch.Tensor:
         """Modular SpMV of a batch: w (B, cols) canonical words -> (B, rows)."""
         if w.dim() != 2 or w.shape[1] != self.cols:
             raise InvalidDimensionsError(f"witness batch must be (B, {self.cols})")
-        row_of, pos, cols, vals, width = self._stage(modulus, w.device)
+        cols, vals, groups = self._stage(modulus, w.device)
         terms = modarith.mul_mod(w[:, cols], vals, modulus)  # (B, nnz)
         out = torch.zeros((w.shape[0], self.rows), dtype=torch.int64, device=w.device)
-        for p in range(width):  # the p-th entry of every row at once
-            sel = (pos == p).nonzero().squeeze(1)
-            rows = row_of[sel]
+        for sel, rows in groups:  # the p-th entry of every row at once
             out[:, rows] = modarith.add_mod(out[:, rows], terms[:, sel], modulus)
         return out

@@ -60,3 +60,13 @@ def derive_dual(public_inputs: Sequence[int], commitment_words: Sequence[int],
     ch_alpha = Challenge.derive(public_inputs, commitment_words, modulus)
     ch_beta = Challenge.derive([ch_alpha.alpha], commitment_words, modulus)
     return ch_alpha, ch_beta
+
+
+def derive_dual_v3(public_inputs: Sequence[int], commitment_words: Sequence[int],
+                   modulus: int, circuit_digest: bytes):
+    """The v3 transcript (wire kind 6): ``derive_dual`` over the commitment
+    words followed by the circuit digest as four LE u64 words."""
+    words = [int(w) for w in commitment_words] + [
+        int.from_bytes(circuit_digest[i:i + 8], "little") for i in range(0, 32, 8)
+    ]
+    return derive_dual(public_inputs, words, modulus)

@@ -1,14 +1,24 @@
-"""Circuit digests (the port's copy of ``circuit_digest`` from the JAX
+"""Circuit and statement digests and the proof store (the port's copy of
+``circuit_digest``, ``statement_digest`` and ``ProofStore`` from the JAX
 package's ``utils/artifacts.py``).
 
-The digest binds the FRI proof kinds' challenges to their circuit (wire
-v4, ``proof.succinct.statement_binding_words``).
+The circuit digest binds the FRI proof kinds' challenges to their circuit
+(wire v4, ``proof.succinct.statement_binding_words``). ``ProofStore`` keeps
+proofs in a directory with a JSON manifest keyed by statement digest, in
+the JAX package's layout, so either package reads the other's store; it is
+the resume log of ``prove_r1cs_stream``: every value is seed-derived, so a
+restarted stream regenerates the same bytes and skips what the store holds.
 """
 
 from __future__ import annotations
 
 import hashlib
+import json
+import os
+from typing import Dict, List, Optional, Sequence
 
+from ..core.errors import SerializationError
+from ..proof.types import ProofR1CS, ProofR1csZk, deserialize_any
 from ..r1cs.r1cs import R1CS
 
 
@@ -31,3 +41,108 @@ def circuit_digest(r1cs: R1CS) -> str:
     digest = h.hexdigest()
     r1cs._circuit_digest_cache = digest
     return digest
+
+
+def statement_digest(r1cs: R1CS, public_inputs: Sequence[int], seed: int,
+                     label: str = "") -> str:
+    """Key of one proved statement: SHA3-256 hex over the circuit digest,
+    the public inputs, the seed and ``label`` (which tells apart batch
+    members whose publics and seed coincide)."""
+    h = hashlib.sha3_256()
+    h.update(circuit_digest(r1cs).encode())
+    h.update(b"|")
+    for v in public_inputs:
+        h.update(f"{int(v)},".encode())
+    h.update(f"|{seed}|{label}".encode())
+    return h.hexdigest()
+
+
+class ProofStore:
+    """Directory-backed proof store: ``<sha3 of the bytes>.proof`` files and
+    ``manifest.json`` (statement digest -> blob, circuit, publics, seed,
+    size, kind)."""
+
+    def __init__(self, root: str) -> None:
+        self.root = root
+        os.makedirs(root, exist_ok=True)
+        self._manifest_path = os.path.join(root, "manifest.json")
+        self._manifest: Dict[str, dict] = {}
+        self.failures: Dict[str, str] = {}  # key -> why verify_all could not load it
+        if os.path.exists(self._manifest_path):
+            with open(self._manifest_path) as f:
+                self._manifest = json.load(f)
+
+    def _flush(self) -> None:
+        tmp = self._manifest_path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(self._manifest, f, indent=2, sort_keys=True)
+        os.replace(tmp, self._manifest_path)
+
+    def contains(self, key: str) -> bool:
+        return key in self._manifest
+
+    def save(self, r1cs: R1CS, public_inputs: Sequence[int], seed: int, proof,
+             extra: Optional[dict] = None, label: str = "") -> str:
+        key = statement_digest(r1cs, public_inputs, seed, label)
+        data = proof.to_bytes()
+        blob = hashlib.sha3_256(data).hexdigest()
+        with open(os.path.join(self.root, f"{blob}.proof"), "wb") as f:
+            f.write(data)
+        self._manifest[key] = {
+            "proof_blob": blob,
+            "circuit": circuit_digest(r1cs),
+            "public_inputs": [int(v) for v in public_inputs],
+            "seed": seed,
+            "size_bytes": len(data),
+            "kind": type(proof).__name__,
+            **(extra or {}),
+        }
+        self._flush()
+        return key
+
+    def load(self, key: str):
+        with open(os.path.join(self.root, f"{self._manifest[key]['proof_blob']}.proof"),
+                  "rb") as f:
+            return deserialize_any(f.read())
+
+    def keys(self) -> List[str]:
+        return sorted(self._manifest)
+
+    def verify_all(self, r1cs: R1CS) -> Dict[str, bool]:
+        """Re-verify every stored proof of this circuit: kinds 2/3/6 with
+        their verifiers, kind 7 against its own recorded FRI parameters (an
+        integrity sweep, not an acceptance floor). A proof of a kind the
+        port cannot load yet records False, as an unknown type does in the
+        JAX package; ``failures`` holds the reasons."""
+        from ..proof.succinct import SuccinctProofR1CS, verify_r1cs_succinct
+        from ..verifier import verify_r1cs, verify_r1cs_zk
+
+        cdig = circuit_digest(r1cs)
+        results = {}
+        self.failures = {}
+        for key, entry in self._manifest.items():
+            if entry["circuit"] != cdig:
+                continue
+            try:
+                proof = self.load(key)
+            except SerializationError as exc:
+                results[key], self.failures[key] = False, str(exc)
+                continue
+            public = entry["public_inputs"]
+            if isinstance(proof, ProofR1csZk):
+                results[key] = verify_r1cs_zk(proof, public, r1cs)
+            elif isinstance(proof, ProofR1CS):
+                results[key] = verify_r1cs(proof, public, r1cs)
+            elif isinstance(proof, SuccinctProofR1CS):
+                results[key] = verify_r1cs_succinct(proof, public, r1cs,
+                                                    min_params=proof.fri_params)
+            else:
+                results[key] = False
+        return results
+
+    def missing_statements(self, r1cs: R1CS, publics_and_seeds: Sequence,
+                           labels: Optional[Sequence[str]] = None) -> List[int]:
+        """Indices not yet proved: the resume point of a batched run."""
+        return [i for i, (public, seed) in enumerate(publics_and_seeds)
+                if not self.contains(statement_digest(r1cs, public, seed,
+                                                      labels[i] if labels else ""))]

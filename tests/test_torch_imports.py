@@ -134,12 +134,35 @@ def test_kernel_sources_and_build_dir():
     # one launch counter per C entry, and every entry defined in its source
     assert set(kernels.PROTOTYPES) == set(kernels.SOURCES)
     entries = {fn for protos in kernels.PROTOTYPES.values() for fn in protos}
-    assert set(kernels.LAUNCHES) == entries
+    assert set(kernels.launches()) == entries
     for name, protos in kernels.PROTOTYPES.items():
         with open(os.path.join(kernels.CSRC_DIR, kernels.SOURCES[name])) as f:
             text = f.read()
         for fn in protos:
             assert fn in text
+
+
+def test_launch_counts_sum_per_entry():
+    """``kernels.count`` keys launches by C entry, input shape and variant;
+    ``launches()`` sums them per entry, 0 for an entry not launched."""
+    saved = dict(kernels.LAUNCHES)
+    try:
+        kernels.reset_launches()
+        kernels.count("ntt_four_step", 2, torch.Size([16, 1 << 14]), "forward mod 5")
+        kernels.count("ntt_four_step", 2, (16, 1 << 14), "forward mod 5")
+        kernels.count("ntt_four_step", 2, (48, 1 << 14), "inverse mod 5")
+        kernels.count("keccak_nodes", 1, (16, 8, 4))
+        assert kernels.LAUNCHES == {("ntt_four_step", (16, 1 << 14), "forward mod 5"): 4,
+                                    ("ntt_four_step", (48, 1 << 14), "inverse mod 5"): 2,
+                                    ("keccak_nodes", (16, 8, 4), ""): 1}
+        totals = kernels.launches()
+        assert totals["ntt_four_step"] == 6 and totals["keccak_nodes"] == 1
+        assert sum(totals.values()) == 7
+        kernels.reset_launches()
+        assert not kernels.LAUNCHES and not any(kernels.launches().values())
+    finally:
+        kernels.reset_launches()
+        kernels.LAUNCHES.update(saved)
 
 
 def _qplan():
@@ -221,11 +244,10 @@ def test_keccak_and_ntt_kernels_match_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from lambda_snark_tpu_torch.ops import keccak
+    from lambda_snark_tpu_torch.ops.ntt import NttPlan, ntt_forward
+    from lambda_snark_tpu_torch.ops.ntt_batched import ntt_forward_batched
     from lambda_snark_tpu_torch.ops.ntt_large import (
         NttLargePlan,
-        dft_plan,
-        dft_rows,
-        dft_rows_plain,
         ntt_forward_large,
         ntt_forward_large_plain,
     )
@@ -244,6 +266,73 @@ def test_keccak_and_ntt_kernels_match_plain_on_card():
         plan = NttLargePlan.create(m, root_of_order(gl, m), device=dev)
         x = words((5, m))
         assert torch.equal(ntt_forward_large(plan, x), ntt_forward_large_plain(plan, x))
-    leaf = dft_plan(128, root_of_order(gl, 128), dev)
+    leaf = NttPlan.create(128, gl, root_of_order(gl, 128), device=dev)
     x = words((6, 128))
-    assert torch.equal(dft_rows(leaf, x), dft_rows_plain(leaf, x))
+    assert torch.equal(ntt_forward_batched(leaf, x), ntt_forward(leaf, x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [port.NTT_FRIENDLY_MODULUS, port.NTT_MODULUS, 2013265921])
+def test_kernel_t_matches_plain_on_card(q):
+    """Kernel T (``ntt_rows`` up to 2^13 points, ``ntt_four_step`` above, over
+    the constexpr fields and the run-time Barrett one) against ``ops.ntt``,
+    forward and inverse, on the card (run with ``python -m pytest
+    tests/test_torch_imports.py -m cuda --noconftest -q`` on a GPU host)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from lambda_snark_tpu_torch.ops.ntt import NttPlan, ntt_forward, ntt_inverse
+    from lambda_snark_tpu_torch.ops.ntt_batched import ntt_forward_batched, ntt_inverse_batched
+    from lambda_snark_tpu_torch.proof.fri import root_of_order
+
+    rng = np.random.default_rng(7)
+    dev = torch.device("cuda")
+    sizes = (2, 8, 256, 1 << 13) if q == port.NTT_FRIENDLY_MODULUS else (2, 256, 1 << 13, 1 << 14)
+    for size in sizes:
+        plan = NttPlan.create(size, q, root_of_order(q, size), device=dev)
+        x = modarith.to_words(rng.integers(0, q, size=(3, size), dtype=np.uint64), dev)
+        assert torch.equal(ntt_forward_batched(plan, x), ntt_forward(plan, x)), size
+        assert torch.equal(ntt_inverse_batched(plan, x), ntt_inverse(plan, x)), size
+
+
+@pytest.mark.cuda
+def test_long_routes_match_plain_on_card():
+    """Kernels Q and R past one tile (m = n = 2^14, Goldilocks): the long
+    routes through kernel T's four-step against the plain twins, and the
+    four-step with folded pre/post tables."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from lambda_snark_tpu_torch.commit.lwe import goldilocks_ring_plan
+    from lambda_snark_tpu_torch.ops.ntt_large import (
+        NttLargePlan,
+        ntt_forward_large,
+        ntt_forward_large_plain,
+        ntt_inverse_large,
+        ntt_inverse_large_plain,
+    )
+    from lambda_snark_tpu_torch.ops.quotient import quotient_plain
+    from lambda_snark_tpu_torch.ops.ring_commit import ring_commit_plain
+    from lambda_snark_tpu_torch.proof.fri import root_of_order
+
+    rng = np.random.default_rng(8)
+    dev = torch.device("cuda")
+    gl, m = port.NTT_MODULUS, 1 << 14
+    words = lambda shape: modarith.to_words(rng.integers(0, gl, size=shape, dtype=np.uint64), dev)
+    plan = QuotientPlan.create(m, gl, field_psi_for(m, gl), device=dev)
+    a, b = words((3, m)), words((3, m))
+    c = modarith.mul_mod(a, b, gl)
+    c[1, 5] = 0
+    got, want = quotient(plan, a, b, c), quotient_plain(plan, a, b, c)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert got[4].tolist() == [True, False, True]
+    ring = RingCommitPlan.create(rng.integers(0, gl, size=(2, m), dtype=np.uint64),
+                                 goldilocks_ring_plan(m, dev))
+    s = torch.from_numpy(rng.integers(-9, 10, size=(2, 3, m), dtype=np.int32)).to(dev)
+    e = torch.from_numpy(rng.integers(-9, 10, size=(3, m), dtype=np.int32)).to(dev)
+    msg = words((3, m - 1))
+    assert torch.equal(ring_commit(ring, s, e, msg), ring_commit_plain(ring, s, e, msg))
+    large = NttLargePlan.create(1 << 15, root_of_order(gl, 1 << 15), dev)
+    x, pre, post = words((2, 1 << 15)), words((1 << 15,)), words((1 << 15,))
+    assert torch.equal(ntt_inverse_large(large, x, pre=pre, post=post),
+                       ntt_inverse_large_plain(large, x, pre=pre, post=post))
+    assert torch.equal(ntt_forward_large(large, x, pre=pre, post=post),
+                       ntt_forward_large_plain(large, x, pre=pre, post=post))

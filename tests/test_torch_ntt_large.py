@@ -1,7 +1,8 @@
 """Kernel N's plain twin (``lambda_snark_tpu_torch.ops.ntt_large``) against
 the JAX package: the TPU kernels ``ntt_forward_mxu_packed`` (ops/ntt_mxu.py)
-and its leaf ``dft_matmul_apply_pallas`` as the CPU runs them, at the sizes
-of ``tests/test_ntt_mxu.py``, and the four-step ``ntt_forward_large``.
+and its leaf ``dft_matmul_apply_pallas`` (kernel T's row entry,
+``ntt_forward_batched``) as the CPU runs them, at the sizes of
+``tests/test_ntt_mxu.py``, and the four-step ``ntt_forward_large``.
 Every comparison is exact."""
 
 import jax.numpy as jnp
@@ -13,15 +14,13 @@ from lambda_snark_tpu.core.params import NTT_MODULUS
 from lambda_snark_tpu.ops import ntt_mxu
 from lambda_snark_tpu.ops.limb import u64_to_limbs
 from lambda_snark_tpu.ops.ntt_large import four_step_plan, ntt_forward_large as jax_large
+from lambda_snark_tpu.ops.ntt_large import ntt_inverse_large as jax_inverse_large
 from lambda_snark_tpu.proof import fri as jax_fri
 
 from lambda_snark_tpu_torch.ops import modarith
-from lambda_snark_tpu_torch.ops.ntt_large import (
-    NttLargePlan,
-    dft_plan,
-    dft_rows,
-    ntt_forward_large,
-)
+from lambda_snark_tpu_torch.ops.ntt import NttPlan
+from lambda_snark_tpu_torch.ops.ntt_batched import ntt_forward_batched, ntt_inverse_batched
+from lambda_snark_tpu_torch.ops.ntt_large import NttLargePlan, ntt_forward_large
 from lambda_snark_tpu_torch.proof import fri
 
 P = NTT_MODULUS
@@ -52,7 +51,7 @@ def test_leaf_matches_dft_matmul_apply_pallas(b):
     rows = 256 // (128 // b)
     x = _vals((rows, b), seed=1000 + b)
     want = _from_planes(ntt_mxu.dft_matmul_apply_pallas(plan, jnp.asarray(u64_to_limbs(x, 4))))
-    got = dft_rows(dft_plan(b, plan.omega), modarith.to_words(x))
+    got = ntt_forward_batched(NttPlan.create(b, P, plan.omega), modarith.to_words(x))
     assert np.array_equal(modarith.to_u64(got), want)
 
 
@@ -81,9 +80,9 @@ def test_plans_and_wrappers_reject(bad):
     if bad == "not_pow2":
         with pytest.raises(ValueError):
             NttLargePlan.create(48, 1)
-    elif bad == "too_large":
+    elif bad == "too_large":  # past two 2^13-word tiles
         with pytest.raises(ValueError):
-            NttLargePlan.create(1 << 21, fri.root_of_order(P, 1 << 21))
+            NttLargePlan.create(1 << 27, fri.root_of_order(P, 1 << 27))
     elif bad == "not_primitive":
         with pytest.raises(ValueError):
             NttLargePlan.create(16, fri.root_of_order(P, 8))
@@ -91,9 +90,24 @@ def test_plans_and_wrappers_reject(bad):
         plan = NttLargePlan.create(16, fri.root_of_order(P, 16))
         with pytest.raises(ValueError):
             ntt_forward_large(plan, torch.zeros((2, 8), dtype=torch.int64))
-    else:
+    else:  # the leaf (kernel T's row entry) takes rows of its plan's width only
+        leaf = NttPlan.create(128, P, fri.root_of_order(P, 128))
         with pytest.raises(ValueError):
-            dft_plan(1 << 14, fri.root_of_order(P, 1 << 14))
+            ntt_forward_batched(leaf, torch.zeros((2, 64), dtype=torch.int64))
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_batched_past_one_tile_matches_jax_four_step(inverse):
+    """Kernel T's wrappers past the 2^13-point leaf (the four-step on the
+    card, ``ops.ntt`` here) equal the JAX package's four-step."""
+    m = 1 << 14
+    omega = fri.root_of_order(P, m)
+    x = _vals((2, m), seed=15)
+    jax_fn = jax_inverse_large if inverse else jax_large
+    want = _from_planes(jax_fn(four_step_plan(m, P, omega), jnp.asarray(u64_to_limbs(x, 4))))
+    ours = ntt_inverse_batched if inverse else ntt_forward_batched
+    got = ours(NttPlan.create(m, P, omega), modarith.to_words(x))
+    assert np.array_equal(modarith.to_u64(got), want)
 
 
 @pytest.mark.parametrize("n,final_len", [(2, 1), (512, 64), (16384, 2048)])

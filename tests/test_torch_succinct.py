@@ -154,6 +154,11 @@ def _tamper(proof, how: str, q: int):
     op0 = q0.input_openings[0]
     if how == "path":
         op0 = dataclasses.replace(op0, path=bytes(32) + op0.path[32:])
+    elif how == "noncanonical":  # the Q oracle's lo value v, re-encoded as v + q
+        vals = list(op0.values)
+        assert vals[6] + q < 1 << 64
+        vals[6] += q
+        op0 = dataclasses.replace(op0, values=tuple(vals))
     else:  # the Q oracle's lo value
         vals = list(op0.values)
         vals[6] = (vals[6] + 1) % q
@@ -164,13 +169,32 @@ def _tamper(proof, how: str, q: int):
 
 
 TAMPERS = ["a_alpha", "b_alpha", "c_alpha", "q_alpha", "a_beta", "q_beta",
-           "consistent_lie", "root", "final", "path", "leaf_value"]
+           "consistent_lie", "root", "final", "path", "leaf_value", "noncanonical"]
+
+
+@pytest.fixture(scope="module")
+def zero_proved(ctxs):
+    """The port's proof of the all-zero witness (x = y = z = 0) at m = 16,
+    whose codewords are all 0: every opened value v has a second encoding
+    v + q below 2^64. Its bytes equal the JAX package's."""
+    jax_ctx, ours = ctxs
+    jr, pr, _ws = _instance(16)
+    zero = [1] + [0] * (pr.n - 1)
+    mine = port.prove_r1cs_succinct_batch(pr, [zero], ours, SEEDS[:1],
+                                          fri_params=FriParams(*FAST), device="cpu")[0]
+    theirs = jax_prove(jr, [zero], jax_ctx, SEEDS[:1], fri_params=JaxFriParams(*FAST),
+                       device_lde=False)[0]
+    assert mine.to_bytes() == theirs.to_bytes()
+    return mine
 
 
 @pytest.mark.parametrize("how", TAMPERS)
-def test_verifiers_agree_on_tampered(proved, how):
+def test_verifiers_agree_on_tampered(proved, how, request):
     jr, pr, ws, _theirs, mine = proved
-    bad = _tamper(mine[0], how, GL)
+    proof = request.getfixturevalue("zero_proved") if how == "noncanonical" else mine[0]
+    if how == "noncanonical":
+        assert port.verify_r1cs_succinct(proof, [1], pr, min_params=FriParams(*FAST))
+    bad = _tamper(proof, how, GL)
     blob = bad.to_bytes()
     ours = port.verify_r1cs_succinct(SuccinctProofR1CS.from_bytes(blob), [1], pr,
                                      min_params=FriParams(*FAST))
