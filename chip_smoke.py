@@ -7,7 +7,9 @@ Phases, each printing one flushed line with the seconds since start:
 
 1. the device: ``torch.cuda`` name and ``nvidia-smi`` name and power limit;
 2. the build of every CUDA kernel from ``lambda_snark_tpu_torch/csrc``
-   (one ``nvcc`` per source, started together);
+   (one ``nvcc`` per source, started together), each kernel's registers and
+   spills, and the SASS instruction mix of kernel T's ``dft_pass`` and
+   kernel K's forest kernel (G = 1 and 4, the kind-7 path's);
 3. kernel Q against its plain PyTorch twin at B = 256, bit-exact: the 44-bit
    field at m = 4096 (plain prover) and m = 2048 (ZK prover), Goldilocks at
    m = 4096;
@@ -33,7 +35,12 @@ Phases, each printing one flushed line with the seconds since start:
     the card: every proof passes ``verify_r1cs_succinct``, proofs 0 and 1
     equal a ``device="cpu"`` run byte for byte, a flipped byte in a FRI path
     and a flipped ``q_alpha`` are rejected, and the launch counts of kernels
-    K, N, Q and R all moved during the run;
+    K, N, Q and R all moved during the run (kernel K: one forest launch per
+    Merkle forest, 7 a batch, and no per-level launch); then kernel K's
+    forest entries at every forest shape of that run against their twin,
+    and the leaves-to-roots host time of the largest and the smallest
+    forest by the forest entry and by the per-level route (``hash_leaves``
+    + one ``hash_nodes`` per level), median of 20;
 12. a host-clock breakdown of kind-7 batches by stage, each part the median
     of five staged batches, and the device-busy time and idle share of one
     batch under ``torch.profiler``, from the CUDA activity of its trace;
@@ -41,17 +48,21 @@ Phases, each printing one flushed line with the seconds since start:
     against ``ops.ntt``, forward and inverse, bit-exact: the 44-bit field
     and Goldilocks at 256 x 2^13 and 64 x 256 (entry ``ntt_rows``),
     2013265921 (run-time Barrett) at 16 x 2^13 and 16 x 2^14, and the
-    four-step at 16 and 48 x 2^14, 16 and 64 x 2^17 and 1 x 2^21;
+    four-step at 16 and 48 x 2^14, 16 and 64 x 2^17 and 1 x 2^21; then the
+    three-pass four-step at 1 x 2^27 (Goldilocks, past the two-pass range),
+    with the peak device memory of that phase;
 14. kernels Q and R past one tile, m = n = 2^14 x 16 rows: their long
     routes through kernel T against ``quotient_plain`` and
     ``ring_commit_plain``, and each elementwise entry of the routes against
     its twin;
 15. ``prove_r1cs_succinct_batch`` at m = 2^14, S = 16 on the card: every
     proof verifies, proofs 0 and 1 equal a ``device="cpu"`` run byte for
-    byte, the median of five batches, and every entry of the path launched;
-    then kernel K at every input shape that run launched it at (group
-    leaves 16 x 4 x 2^17, each paired-leaf and node level), and kernel T at
-    each of its shapes that phase 13 did not hold, against their twins;
+    byte, the median of five batches, and every entry of the path launched
+    (kernel K: 8 forest launches a batch, no per-level launch); then kernel
+    K at every input shape that run launched it at (the group forest
+    16 x 4 x 2^17, each paired-leaf forest), kernel T at each of its shapes
+    that phase 13 did not hold, against their twins, and the forest times
+    as in phase 11;
 16. ``prove_r1cs_stream`` at m = n = 4096 in batches of 256 (3 batches and a
     tail of 100): every proof through ``deserialize_any`` and
     ``verify_r1cs``, the first 8 equal a CPU run, proofs/s; a ``ProofStore``
@@ -111,18 +122,53 @@ OPS_KECCAK = 24 * 180
 KIND7_M, KIND7_S = 1 << 13, 16
 KIND7_CHECK = 2  # kind-7 proofs compared byte for byte with a CPU run
 KIND7_REPS = 5  # timed kind-7 batches (the first one counts launches)
-# the C entries the kind-7 path must launch (kernels.launches() keys)
-KIND7_ENTRIES = ("keccak_group_leaves", "keccak_leaves", "keccak_nodes",
-                 "ntt_four_step", "ntt_rows", "quotient_goldilocks",
-                 "ring_commit_goldilocks")
+# the C entries the kind-7 path must launch (kernels.launches() keys), and
+# kernel K's per-level entries, which it must not: one forest launch builds
+# each Merkle forest (the input oracles' group forest and one paired-leaf
+# forest per committed FRI layer)
+KIND7_ENTRIES = ("keccak_group_forest", "keccak_forest", "ntt_four_step", "ntt_rows",
+                 "quotient_goldilocks", "ring_commit_goldilocks")
+KECCAK_PER_LEVEL = ("keccak_group_leaves", "keccak_leaves", "keccak_nodes")
+KIND7_FORESTS, KIND7_LONG_FORESTS = 7, 8
+FOREST_TIME_REPS = 20  # host-clock leaves-to-roots times, median
 # kind 7 one size up, m = 2^14: kernels Q and R take their long routes
 # through kernel T's four-step
 KIND7_LONG_M = 1 << 14
-KIND7_LONG_ENTRIES = ("keccak_group_leaves", "keccak_leaves", "keccak_nodes",
-                      "ntt_four_step", "ntt_rows", "quotient_pointwise", "ring_twist",
-                      "ring_accumulate", "ring_finish")
+KIND7_LONG_ENTRIES = ("keccak_group_forest", "keccak_forest", "ntt_four_step", "ntt_rows",
+                      "quotient_pointwise", "ring_twist", "ring_accumulate", "ring_finish")
+# the four-step past two passes: 1 x 2^27 Goldilocks words, three passes
+NTT_DEEP_LOG_M = 27
 # prove_r1cs_stream: three full batches and a partial tail; ZK at m = 2048
 STREAM_COUNT, STREAM_ZK_COUNT, STREAM_CUT = 3 * BATCH + 100, BATCH + 100, 300
+
+
+def sass_mix(path: str) -> dict:
+    """Per kernel function of a built library, its SASS instruction count
+    and the share of integer multiply-adds (IMAD) and of compare-selects
+    (ISETP, SEL), from ``cuobjdump -sass``; empty where the tool is
+    missing."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return {}
+    out = subprocess.run([tool, "-sass", path], capture_output=True, text=True,
+                         timeout=120).stdout
+    mix, name = {}, None
+    for line in out.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            name = found.group(1)
+            mix[name] = {"total": 0, "IMAD": 0, "ISETP+SEL": 0}
+            continue
+        op = re.match(r"\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)", line)
+        if name and op:
+            mix[name]["total"] += 1
+            key = {"IMAD": "IMAD", "ISETP": "ISETP+SEL", "SEL": "ISETP+SEL"}.get(op.group(1))
+            if key:
+                mix[name][key] += 1
+    return mix
 
 
 def nonzero(launches: dict) -> dict:
@@ -194,6 +240,86 @@ def ntt_work(rows: int, m: int, twiddled: bool, field: str = "goldilocks",
     return nbytes, muls * OPS_MUL[field] + 2 * butterflies * OPS_ADD
 
 
+def forest_work(trees: int, groups: int, n: int):
+    """Bytes and ops of whole Merkle forests over (trees, groups, n) words:
+    every word read once, 2 (n/2) - 1 digests of 32 bytes written and
+    hashed per tree."""
+    hashes = trees * (n - 1)
+    return trees * groups * n * 8 + 32 * hashes, hashes * OPS_KECCAK
+
+
+FOREST_ENTRIES = ("keccak_group_forest", "keccak_forest")
+KECCAK_SRC = "lambda_snark_tpu/ops/keccak_pallas.py:242"
+
+
+def forest_inputs(np, modarith, dev, rng, entry: str, shape):
+    """Random words of a forest launch's recorded input shape (T, G, n),
+    with the wrapper and its twin (the paired entry takes (T, n))."""
+    from lambda_snark_tpu_torch.ops import keccak
+
+    x = modarith.to_words(rng.integers(0, 1 << 64, size=shape, dtype=np.uint64,
+                                       endpoint=False), dev)
+    if entry == "keccak_forest":
+        return (x[:, 0].contiguous(), lambda v: tuple(keccak.merkle_forest(v)),
+                lambda v: tuple(keccak.merkle_forest_plain(v)),
+                lambda v: keccak.merkle_levels(keccak.hash_leaves(v)))
+    return (x, lambda v: tuple(keccak.merkle_forest_flex(v)),
+            lambda v: tuple(keccak.merkle_forest_flex_plain(v)),
+            lambda v: keccak.merkle_levels(keccak.hash_leaves_flex(v)))
+
+
+def hold_forests(np, torch, dev, rng, hold, shapes, tag: str) -> list:
+    """Kernel K's forest entries at every (entry, shape) of a kind-7 run's
+    ``shapes`` (``kernels.LAUNCHES``) against their twin; ``kernels`` line
+    entries with the run's launches at each shape."""
+    from lambda_snark_tpu_torch.ops import modarith
+
+    out = []
+    for (entry, shape, _), launches in sorted(shapes.items()):
+        if entry not in FOREST_ENTRIES:
+            continue
+        x, fn, plain, _ = forest_inputs(np, modarith, dev, rng, entry, shape)
+        rec = hold(f"{tag} {entry} {'x'.join(map(str, shape))}", fn, plain, (x,),
+                   forest_work(*shape), plain_reps=1)
+        out.append(dict(name=f"{entry}_{tag.replace(' ', '_')}_{'x'.join(map(str, shape))}",
+                        route="cuda", source="lambda_snark_tpu_torch/csrc/keccak.cu",
+                        replaces=KECCAK_SRC, launches=launches, **rec, library_ms=None))
+    return out
+
+
+def forest_times(np, torch, dev, rng, shapes, tag: str) -> list:
+    """Host-clock time from leaves to roots on the host (the wait of a FRI
+    layer) of the largest and the smallest forest of a kind-7 run: one
+    forest launch against the per-level route (``hash_leaves`` and one
+    ``hash_nodes`` launch per level), alternated, median of
+    FOREST_TIME_REPS each after a warm-up."""
+    from lambda_snark_tpu_torch.ops import modarith
+
+    forests = sorted({(entry, shape) for (entry, shape, _) in shapes if entry in FOREST_ENTRIES},
+                     key=lambda es: (es[1][0] * es[1][1] * es[1][2], es[0]))
+    records = []
+    for entry, shape in (forests[-1], forests[0]):
+        x, fn, _, per_level = forest_inputs(np, modarith, dev, rng, entry, shape)
+        routes = {"forest": fn, "per_level": per_level}
+        roots = {k: modarith.to_u64(f(x)[-1]) for k, f in routes.items()}
+        if not np.array_equal(roots["forest"], roots["per_level"]):
+            raise RuntimeError(f"{tag}: the forest entry and the per-level route disagree")
+        times = {k: [] for k in routes}
+        for _ in range(FOREST_TIME_REPS):
+            for k, f in routes.items():
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                modarith.to_u64(f(x)[-1])  # the roots on the host
+                times[k].append((time.perf_counter() - t) * 1e3)
+        med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+        records.append(dict(path=tag, entry=entry, shape=list(shape),
+                            forest_ms=med["forest"], per_level_ms=med["per_level"]))
+        phase(f"{tag} forest {entry} {'x'.join(map(str, shape))}: leaves to roots on the host "
+              f"{med['forest']:.4f} ms in one launch, {med['per_level']:.4f} ms per level "
+              f"(median of {FOREST_TIME_REPS})")
+    return records
+
+
 def elementwise_work(read_bytes: int, write_bytes: int, muls: int, adds: int):
     return read_bytes + write_bytes, muls * OPS_MUL["goldilocks"] + adds * OPS_ADD
 
@@ -248,7 +374,8 @@ def kind7_circuit(lst, m: int):
 def kind7_phases(np, torch, lst, dev, rng, hold, report):
     """Phases 8-12: kernels K and N, kernels Q and R at the kind-7 shapes,
     and ``prove_r1cs_succinct_batch`` on the card. Returns (kind-7 path
-    launches, the kind-7 end-to-end record)."""
+    launches, its launches per (entry, shape, variant), the kind-7
+    end-to-end record)."""
     import dataclasses
     import hashlib
     import struct
@@ -368,8 +495,12 @@ def kind7_phases(np, torch, lst, dev, rng, hold, report):
     proofs = lst.prove_r1cs_succinct_batch(r1cs7, wits, ctx7, seeds)
     elapsed = time.time() - t
     launches = kernels.launches()
+    shapes = dict(kernels.LAUNCHES)
     if min(launches[e] for e in KIND7_ENTRIES) < 1:
         raise RuntimeError(f"kind 7: a kernel of the path was not launched: {launches}")
+    if (any(launches[e] for e in KECCAK_PER_LEVEL)
+            or sum(launches[e] for e in FOREST_ENTRIES) != KIND7_FORESTS):
+        raise RuntimeError(f"kind 7: not one forest launch per Merkle forest: {launches}")
     if len(proofs) != s or not all(verify_r1cs_succinct(p, [1], r1cs7) for p in proofs):
         raise RuntimeError("kind 7: a proof from the card does not verify")
     for i in range(KIND7_CHECK):
@@ -451,7 +582,7 @@ def kind7_phases(np, torch, lst, dev, rng, hold, report):
     phase(f"phase 12 kind-7 profiled batch: {wall:.4f} s wall, device busy "
           f"{'not measured' if busy is None else f'{busy:.4f} s, idle share {idle:.3f}'}; "
           f"most device time: {[(k, round(v, 3)) for k, v in top]}")
-    return launches, dict(m=m, statements=s, n0=n0, end_to_end_s=times,
+    return launches, shapes, dict(m=m, statements=s, n0=n0, end_to_end_s=times,
                           end_to_end_median_s=elapsed, proofs_per_s=s / elapsed,
                           breakdown_median_s=parts, proof_bytes=len(p0.to_bytes()),
                           profiled_wall_s=wall, device_busy_s=busy, device_idle_share=idle,
@@ -469,7 +600,13 @@ def kernel_t_phases(np, torch, lst, dev, rng, hold, report):
     from lambda_snark_tpu_torch.ops import ring_commit as rmod
     from lambda_snark_tpu_torch.ops.ntt import NttPlan, ntt_forward, ntt_inverse
     from lambda_snark_tpu_torch.ops.ntt_batched import ntt_forward_batched, ntt_inverse_batched
-    from lambda_snark_tpu_torch.ops.ntt_large import ntt_forward_large
+    from lambda_snark_tpu_torch.ops.ntt_large import (
+        NttLargePlan,
+        ntt_forward_large,
+        ntt_forward_large_plain,
+        ntt_inverse_large,
+        ntt_inverse_large_plain,
+    )
     from lambda_snark_tpu_torch.pipeline import field_psi_for
     from lambda_snark_tpu_torch.proof.fri import root_of_order
 
@@ -502,6 +639,35 @@ def kernel_t_phases(np, torch, lst, dev, rng, hold, report):
                 f"{rows}x{size}", lambda v, plan=plan, fn=fn: fn(plan, v),
                 lambda v, plan=plan, plain=plain: plain(plan, v), (x,),
                 ntt_work(rows, size, four, names[q], inverse)))
+
+    # --- phase 13, continued: three passes, 1 x 2^27 --------------------------
+    # Peak reckoned before the run: the plan's two 1 GiB store-order tables
+    # (and 2 x 2 MiB for its inner four-step), x, the kernel's scratch and
+    # output (1 GiB each), and the twin's three buffers, index tensors and
+    # 16-bit-digit products (about 30 GiB at its widest): 35-45 GiB.
+    m = 1 << NTT_DEEP_LOG_M
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    large = NttLargePlan.create(m, root_of_order(gl, m), device=dev)
+    if large.n_passes != 3:
+        raise RuntimeError(f"the 2^{NTT_DEEP_LOG_M}-point plan has {large.n_passes} passes, not 3")
+    x = words((1, m), gl)
+    for inverse, fn, plain in ((False, ntt_forward_large, ntt_forward_large_plain),
+                               (True, ntt_inverse_large, ntt_inverse_large_plain)):
+        key_ = f"ntt_four_step_goldilocks_1x{m}_{'inverse' if inverse else 'forward'}"
+        report[key_] = dict(entry="ntt_four_step", shape=(1, m),
+                            variant=f"{'inverse' if inverse else 'forward'} mod {gl}")
+        report[key_].update(hold(
+            f"phase 13 kernel T three-pass four-step {'inverse' if inverse else 'forward'} "
+            f"goldilocks 1x2^{NTT_DEEP_LOG_M}", lambda v, fn=fn: fn(large, v),
+            lambda v, plain=plain: plain(large, v), (x,),
+            ntt_work(1, m, True, "goldilocks", inverse), plain_reps=1))
+    peak = torch.cuda.max_memory_allocated()
+    del large, x
+    torch.cuda.empty_cache()
+    phase(f"phase 13 three-pass four-step at 1x2^{NTT_DEEP_LOG_M}: peak device memory "
+          f"{peak / 2 ** 30:.2f} GiB (torch.cuda.max_memory_allocated)")
 
     # --- phase 14: the long routes of kernels Q and R ---------------------------
     m, s = KIND7_LONG_M, KIND7_S
@@ -577,6 +743,10 @@ def kind7_long_phase(np, torch, lst, rng):
     shapes = dict(kernels.LAUNCHES)
     if min(launches[e] for e in KIND7_LONG_ENTRIES) < 1:
         raise RuntimeError(f"kind 7 at m={m}: a kernel of the path was not launched: {launches}")
+    if (any(launches[e] for e in KECCAK_PER_LEVEL)
+            or sum(launches[e] for e in FOREST_ENTRIES) != KIND7_LONG_FORESTS):
+        raise RuntimeError(f"kind 7 at m={m}: not one forest launch per Merkle forest: "
+                           f"{launches}")
     if len(proofs) != s or not all(verify_r1cs_succinct(p, [1], r1cs) for p in proofs):
         raise RuntimeError(f"kind 7 at m={m}: a proof from the card does not verify")
     for i in range(KIND7_CHECK):
@@ -603,7 +773,7 @@ def kind7_long_shapes_phase(np, torch, lst, dev, rng, hold, shapes, report):
     at each (entry, shape, direction) of it that phase 13 did not hold,
     each against its twin on fresh random words of that shape. Returns
     ``kernels`` line entries with the run's launches at each shape."""
-    from lambda_snark_tpu_torch.ops import keccak, modarith
+    from lambda_snark_tpu_torch.ops import modarith
     from lambda_snark_tpu_torch.ops.ntt import NttPlan, ntt_forward, ntt_inverse
     from lambda_snark_tpu_torch.ops.ntt_batched import ntt_forward_batched, ntt_inverse_batched
     from lambda_snark_tpu_torch.proof.fri import root_of_order
@@ -614,19 +784,10 @@ def kind7_long_shapes_phase(np, torch, lst, dev, rng, hold, shapes, report):
     out = []
     for (entry, shape, variant), launches in sorted(shapes.items()):
         label = f"phase 15 {entry} {'x'.join(map(str, shape))} {variant}".rstrip()
-        if entry.startswith("keccak_"):
-            if entry == "keccak_nodes":  # (T, rows, 4) digests -> rows / 2 nodes
-                x = modarith.to_words(rng.integers(0, 1 << 63, size=shape, dtype=np.uint64), dev)
-                fn, plain, hashes = keccak.hash_nodes, keccak.hash_nodes_plain, x.numel() // 8
-            else:  # (T, G, n) words -> n / 2 leaves; paired leaves take (T, n)
-                x = modarith.to_words(rng.integers(0, gl, size=shape, dtype=np.uint64), dev)
-                fn, plain = keccak.hash_leaves_flex, keccak.hash_leaves_flex_plain
-                if entry == "keccak_leaves":
-                    x = x[:, 0].contiguous()
-                    fn, plain = keccak.hash_leaves, keccak.hash_leaves_plain
-                hashes = shape[0] * shape[2] // 2
-            rec = hold(label, fn, plain, (x,), keccak_work(hashes, x.numel() * 8))
-            replaces = "lambda_snark_tpu/ops/keccak_pallas.py:242"
+        if entry in FOREST_ENTRIES:  # (T, G, n) words; the paired entry takes (T, n)
+            x, fn, plain, _ = forest_inputs(np, modarith, dev, rng, entry, shape)
+            rec = hold(label, fn, plain, (x,), forest_work(*shape), plain_reps=1)
+            replaces = KECCAK_SRC
             src_file = "keccak.cu"
         elif entry.startswith("ntt_") and (entry, shape, variant) not in held_t:
             direction, q = variant.split(" mod ")
@@ -792,11 +953,15 @@ def main() -> int:
             for line in f:
                 if "registers" in line or "spill" in line:
                     print(f"  {name}: {line.strip()}", flush=True)
+    for name in ("ntt", "keccak"):
+        for fn, mix in sass_mix(paths[name]).items():
+            if "dft_pass" in fn or "forest_kernelILi1E" in fn or "forest_kernelILi4E" in fn:
+                print(f"  {name} SASS {fn}: {mix}", flush=True)
 
     rng = np.random.default_rng(SEED)
     report = {}
 
-    def hold(label: str, fn, plain, args, work) -> dict:
+    def hold(label: str, fn, plain, args, work, plain_reps: int = 3) -> dict:
         """Run a kernel and its plain twin on the same card tensors, demand
         equal outputs, then time both; ``work`` is (bytes, 32-bit ops)."""
         got, want = fn(*args), plain(*args)
@@ -805,10 +970,12 @@ def main() -> int:
         want = want if isinstance(want, tuple) else (want,)
         err = max(max_abs_err(np, modarith, g.to(torch.int64), w.to(torch.int64))
                   for g, w in zip(got, want))
-        if err != 0.0 or not all(torch.equal(g, w) for g, w in zip(got, want)):
+        if (err != 0.0 or len(got) != len(want)
+                or not all(torch.equal(g, w) for g, w in zip(got, want))):
             raise RuntimeError(f"{label} disagrees with its plain twin (max |err| {err})")
+        del got, want
         ms = cuda_ms(torch, lambda: fn(*args), 20)
-        plain_ms = cuda_ms(torch, lambda: plain(*args), 3)
+        plain_ms = cuda_ms(torch, lambda: plain(*args), plain_reps)
         bms, by = bound_ms(*work)
         phase(f"{label}: bit-exact; {ms:.4f} ms (plain {plain_ms:.2f} ms, "
               f"bound {bms:.4f} ms by {by})")
@@ -947,12 +1114,15 @@ def main() -> int:
                       "end_to_end_s": {k: v["end_to_end_s"] for k, v in stage.items()}}),
           flush=True)
 
-    k7, kind7 = kind7_phases(np, torch, lst, dev, rng, hold, report)
-    keccak_src = "lambda_snark_tpu/ops/keccak_pallas.py:242"
+    k7, k7a_shapes, kind7 = kind7_phases(np, torch, lst, dev, rng, hold, report)
+    entries += hold_forests(np, torch, dev, rng, hold, k7a_shapes, "phase 11 kind7")
+    forests = forest_times(np, torch, dev, rng, k7a_shapes, "phase 11 kind7")
+    keccak_src = KECCAK_SRC
     # launches: the kind-7 run's count of the entry that serves the shape.
     # Its only four-step transform is the n0 = 2^16-point LDE and its only
     # leaf transform the final polynomials (S x 512), so the 2^20 and the
-    # B = 128 shapes (more calls of the same entries) have none of them.
+    # B = 128 shapes (more calls of the same entries) have none of them;
+    # kernel K's per-level entries are no longer on the path (0).
     for name, rep, src_file, replaces, launches in (
             ("keccak_group_leaves", "keccak_group_leaves", "keccak.cu", keccak_src,
              k7["keccak_group_leaves"]),
@@ -989,10 +1159,10 @@ def main() -> int:
                                replaces=pallas_src, launches=launches, **rep,
                                library_ms=None))
     shaped += kind7_long_shapes_phase(np, torch, lst, dev, rng, hold, k7_shapes, report)
+    forests += forest_times(np, torch, dev, rng, k7_shapes, "phase 15 kind7")
     # every launch of kernels K and T on the m = 2^14 path is in the line,
     # under the shape it was held at
-    for entry in ("keccak_group_leaves", "keccak_leaves", "keccak_nodes", "ntt_four_step",
-                  "ntt_rows"):
+    for entry in FOREST_ENTRIES + ("ntt_four_step", "ntt_rows"):
         listed = sum(e["launches"] for e in shaped if e["name"].startswith(entry + "_"))
         if listed != k7_long[entry]:
             raise RuntimeError(f"kind 7 at m=2^14: {entry} launched {k7_long[entry]} times, "
@@ -1032,6 +1202,7 @@ def main() -> int:
                           [e, list(shape), v, n] for (e, shape, v), n in k7_shapes.items()]}),
           flush=True)
     print(json.dumps({"stream": stream, "launches_stream": st}), flush=True)
+    print(json.dumps({"forest_leaves_to_roots_ms": forests}), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)

@@ -1,5 +1,4 @@
-// Kernel K: batched single-block SHA3-256 for Merkle trees, one hash per
-// thread.
+// Kernel K: batched single-block SHA3-256 for Merkle trees.
 //
 // Replaces the TPU kernel keccak_pallas.py::_hash_call (kernels _leaf_kernel,
 // _flex_leaf_kernel, _node_kernel; pallas_call at ops/keccak_pallas.py:242),
@@ -13,14 +12,37 @@
 // Digests are 4 LE64 words (the first 4 lanes of the state), stored as
 // out[h*4 + k], so a level (T, rows, 4) is also the next level's input.
 //
+// Two kinds of entry. keccak_leaves / keccak_group_leaves / keccak_nodes
+// hash one level per launch, one hash per thread (the JAX package's
+// functions). keccak_forest / keccak_group_forest build whole Merkle
+// forests, leaves to roots, in one launch each: a FRI layer waits for its
+// roots before it can draw the next challenge, so a launch per level put
+// some 15 host launch latencies on that wait per layer.
+//
 // What bounds it: integer instructions. A Keccak-f[1600] permutation is
 // 24 rounds of about 30 XOR/AND-NOT and 25 rotates on 64-bit lanes (each
 // two 32-bit funnel shifts), against at most 136 bytes in and 32 out per
-// hash. Design: the 25 lanes live in registers (every index below is a
-// compile-time constant, so nothing spills to local memory), the message
-// block is built in registers from the raw codeword words (a leaf reads
-// v[i] and v[i + n/2] straight from the LDE, no payload pass), and
-// consecutive threads read and write consecutive words.
+// hash; a forest of L leaves is 2L - 1 permutations. Design: the 25 lanes
+// live in registers (every index below is a compile-time constant, so
+// nothing spills to local memory), the message block is built in registers
+// from the raw codeword words (a leaf reads v[i] and v[i + n/2] straight
+// from the LDE, no payload pass), and consecutive threads read and write
+// consecutive words (one hash per thread, per-level entries). A forest
+// launch takes one block of 64 threads per subtree: each thread hashes
+// 2^K leaves (K <= 5, from the wrapper: 5 for the largest forests, less
+// where the forest would not fill the card) and every node above them depth
+// first, so all lanes of a warp hash until the threads' subtree roots (a
+// block of one hash per leaf would leave most lanes idle on its upper
+// levels); the block keeps those roots in shared memory, halves them level
+// by level with one __syncthreads per level and writes every level out.
+// The last block of a tree to finish (a ticket per tree, taken with
+// atomicAdd after a __threadfence) reads the other blocks' subtree roots
+// through L2 (__ldcg) and hashes the tree's top levels; it then sets the
+// ticket back to 0, so the counters reset themselves and the wrapper zeroes
+// them only when it allocates them. A tree of at most 2^(K+6) leaves is one
+// block and takes no ticket. The per-thread subtrees bring the largest
+// forest (16 x 2^16 group leaves) to the per-level entries' time and every
+// smaller one below it.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -210,4 +232,170 @@ extern "C" int keccak_nodes(const uint64_t* level, uint64_t* out, long long coun
   if (count == 0) return 0;
   nodes_kernel<<<grid_for(count), kThreads, 0, stream>>>(level, out, count);
   return (int)cudaGetLastError();
+}
+
+// --- whole forests -----------------------------------------------------------
+
+constexpr int kLogForestThreads = 6;  // 64 threads a forest block
+constexpr int kForestThreads = 1 << kLogForestThreads;
+constexpr int kMaxLogPerThread = 5;   // leaves a thread takes, log2
+
+// Word offset of level l in a forest buffer of `trees` trees of 2^log_half
+// leaves: the levels lie one after another, leaf level first, each a
+// (trees, rows_l, 4) block, rows_l = 2^(log_half - l).
+__device__ __forceinline__ long long level_offset(int l, int log_half, long long trees) {
+  return 4 * trees * ((2ll << log_half) - ((2ll << log_half) >> l));
+}
+
+__device__ __forceinline__ void node_digest(uint64_t a[25], const uint64_t w[8]) {
+  absorb_block<8>(a, 0x01ull, w);
+  keccak_f(a);
+}
+
+__device__ __forceinline__ void put_digest(uint64_t* out, int l, int log_half,
+                                           long long trees, long long t,
+                                           long long row, const uint64_t a[25]) {
+  uint64_t* d = out + level_offset(l, log_half, trees) + (t * (1ll << (log_half - l)) + row) * 4;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) d[k] = a[k];
+}
+
+// One block per subtree of 2^log_block leaves, blocks of one tree
+// consecutive. Each of the block's 2^(log_block - log_thread) active
+// threads builds a subtree of 2^log_thread leaves depth first (its pending
+// left digests on a stack in shared memory), so every lane of a warp hashes
+// until the threads' roots; the block then halves those roots level by
+// level. vals (trees, G, 2 half) words -> out, every level of every tree
+// (level_offset's layout). tickets: one zeroed counter per tree.
+template <int G>
+__global__ void __launch_bounds__(kForestThreads) forest_kernel(
+    const uint64_t* __restrict__ vals, uint64_t* out, unsigned int* tickets,
+    int log_half, int log_thread, int log_block) {
+  __shared__ uint64_t stack[kMaxLogPerThread][kForestThreads][4];
+  __shared__ uint64_t dig[2][kForestThreads][4];
+  __shared__ bool last;
+  const int log_subs = log_half - log_block;  // subtrees per tree, log2
+  const int log_thr = log_block - log_thread;  // active threads, log2
+  const long long trees = (long long)gridDim.x >> log_subs;
+  const long long t = blockIdx.x >> log_subs;
+  const long long b = blockIdx.x & ((1 << log_subs) - 1);
+  const long long half = 1ll << log_half, n = 2 * half;
+  const int tid = threadIdx.x;
+  uint64_t a[25];
+
+  if (tid < (1 << log_thr)) {
+    const long long first = (b << log_block) + ((long long)tid << log_thread);
+    const uint64_t* v = vals + t * G * n + first;
+    for (int i = 0; i < (1 << log_thread); ++i) {
+      uint64_t w[2 * G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        w[2 * g] = v[g * n + i];
+        w[2 * g + 1] = v[g * n + half + i];
+      }
+      absorb_block<2 * G>(a, 0x00ull, w);
+      keccak_f(a);
+      put_digest(out, 0, log_half, trees, t, first + i, a);
+      int l = 0;
+      while ((i >> l) & 1) {  // a completes the left digest pending at level l
+        uint64_t m[8];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          m[k] = stack[l][tid][k];
+          m[4 + k] = a[k];
+        }
+        node_digest(a, m);
+        ++l;
+        put_digest(out, l, log_half, trees, t, (first + i) >> l, a);
+      }
+      if (l < log_thread) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) stack[l][tid][k] = a[k];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) dig[0][tid][k] = a[k];
+  }
+  __syncthreads();
+  int cur = 0;
+  for (int l = 1; l <= log_thr; ++l) {
+    const int cnt = 1 << (log_thr - l);
+    if (tid < cnt) {
+      uint64_t m[8];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        m[k] = dig[cur][2 * tid][k];
+        m[4 + k] = dig[cur][2 * tid + 1][k];
+      }
+      node_digest(a, m);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) dig[cur ^ 1][tid][k] = a[k];
+      put_digest(out, log_thread + l, log_half, trees, t, b * cnt + tid, a);
+    }
+    cur ^= 1;
+    __syncthreads();
+  }
+  if (log_subs == 0) return;
+  // thread 0 wrote the subtree root
+  if (tid == 0) {
+    __threadfence();
+    last = atomicAdd(tickets + t, 1u) == (1u << log_subs) - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  for (int l = log_block + 1; l <= log_half; ++l) {
+    const long long cnt = half >> l;
+    const uint64_t* prev = out + level_offset(l - 1, log_half, trees) + t * (2 * cnt) * 4;
+    for (long long j = tid; j < cnt; j += kForestThreads) {
+      uint64_t m[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        m[k] = __ldcg(reinterpret_cast<const unsigned long long*>(prev + j * 8 + k));
+      node_digest(a, m);
+      put_digest(out, l, log_half, trees, t, j, a);
+    }
+    __threadfence();
+    __syncthreads();
+  }
+  if (tid == 0) tickets[t] = 0;
+}
+
+// vals (trees, groups, 2^(log_half+1)) words -> out: every level of each
+// tree's Merkle tree over its 2^log_half group leaves, level-major
+// (4 trees (2^(log_half+1) - 1) words), each thread hashing
+// 2^log_thread leaves and the nodes above them (log_thread <= 5, cut to
+// the tree); tickets: `trees` zeroed counters, left zeroed.
+extern "C" int keccak_group_forest(const uint64_t* vals, uint64_t* out,
+                                   unsigned int* tickets, int trees, int groups,
+                                   int log_half, int log_thread,
+                                   cudaStream_t stream) {
+  if (trees == 0) return 0;
+  if (log_half < 1 || log_half > 30 || log_thread < 0 || log_thread > kMaxLogPerThread)
+    return (int)cudaErrorInvalidValue;
+  if (log_thread > log_half) log_thread = log_half;
+  const int log_thr = log_half - log_thread < kLogForestThreads ? log_half - log_thread
+                                                                 : kLogForestThreads;
+  const int log_block = log_thread + log_thr;
+  const long long grid = (long long)trees << (log_half - log_block);
+  if (grid > 0x7FFFFFFFll) return (int)cudaErrorInvalidValue;
+  switch (groups) {
+#define FOREST_CASE(G)                                                        \
+  case G:                                                                     \
+    forest_kernel<G><<<(unsigned)grid, kForestThreads, 0, stream>>>(          \
+        vals, out, tickets, log_half, log_thread, log_block);                 \
+    break;
+    FOREST_CASE(1) FOREST_CASE(2) FOREST_CASE(3) FOREST_CASE(4)
+    FOREST_CASE(5) FOREST_CASE(6) FOREST_CASE(7) FOREST_CASE(8)
+#undef FOREST_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// values (trees, 2^(log_half+1)) -> the forest of paired FRI leaves.
+extern "C" int keccak_forest(const uint64_t* values, uint64_t* out,
+                             unsigned int* tickets, int trees, int log_half,
+                             int log_thread, cudaStream_t stream) {
+  return keccak_group_forest(values, out, tickets, trees, 1, log_half, log_thread, stream);
 }

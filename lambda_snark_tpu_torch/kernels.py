@@ -12,9 +12,11 @@ memory, spills) is kept beside each library as ``lib<name>.log``.
 ``LAUNCHES`` counts kernel launches per C entry (the names in
 ``PROTOTYPES``), the shape of the entry's input and a variant (a
 transform's direction and modulus): each wrapper calls ``count`` where it
-calls an entry, with the number of kernels that entry launches (two for
-``ntt_four_step``, one pass each; one for every other entry), and nowhere
-else. ``launches()`` sums them per C entry.
+calls an entry, with the number of kernels that entry launches (one per
+pass for ``ntt_four_step``: two up to 2^26 points, three at 2^27; one for
+every other entry, a whole Merkle forest for ``keccak_forest`` and
+``keccak_group_forest``), and nowhere else. ``launches()`` sums them per
+C entry.
 """
 
 from __future__ import annotations
@@ -61,10 +63,12 @@ PROTOTYPES = {
         "keccak_leaves": [_P, _P, _I, _I, _P],
         "keccak_group_leaves": [_P, _P, _I, _I, _I, _P],
         "keccak_nodes": [_P, _P, _I64, _P],
+        "keccak_forest": [_P, _P, _P, _I, _I, _I, _P],
+        "keccak_group_forest": [_P, _P, _P, _I, _I, _I, _I, _P],
     },
-    "ntt": {
-        "ntt_four_step": [_P] * 8 + [_U64, _U64, _I, _I, _I, _P],
-        "ntt_rows": [_P, _P, _P, _U64, _U64, _I, _I, _P],
+    "ntt": {  # a pointer to host NttPass descriptors (ops.ntt_large.NttPassStruct)
+        "ntt_four_step": [_P, _I, _U64, _P],
+        "ntt_rows": [_P, _U64, _P],
     },
 }
 
@@ -148,6 +152,28 @@ def load(name: str) -> ctypes.CDLL:
             getattr(lib, fn).restype = ctypes.c_int
         _LIBS[name] = lib
     return _LIBS[name]
+
+
+def stream_handle(device) -> int:
+    """The raw handle of the current CUDA stream of ``device``."""
+    import torch
+
+    index = torch.device(device).index or 0
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    return raw(index) if raw is not None else torch.cuda.current_stream(index).cuda_stream
+
+
+def launch(device, fn, *args) -> int:
+    """``fn(*args, stream)`` for the current stream of ``device``, with
+    ``device`` the current CUDA device; the device is switched only when
+    it is not (a switch and a stream object cost microseconds a launch)."""
+    import torch
+
+    index = torch.device(device).index or 0
+    if torch.cuda.current_device() == index:
+        return fn(*args, stream_handle(index))
+    with torch.cuda.device(index):
+        return fn(*args, stream_handle(index))
 
 
 def check(rc: int, what: str) -> None:

@@ -11,11 +11,21 @@ Three single-block messages, the Merkle layer of the FRI proofs:
 - ``hash_nodes(level)``: level (T, rows, 4) digests -> (T, rows/2, 4),
   node j = 0x01 || digest[2j] || digest[2j+1].
 
+``merkle_forest(values)`` / ``merkle_forest_flex(vals)`` build whole Merkle
+forests, every level from the leaves of ``hash_leaves`` /
+``hash_leaves_flex`` up to the roots, in one launch of kernel K (entries
+``keccak_forest`` / ``keccak_group_forest``). The levels come back as views
+of one level-major buffer: level l is a contiguous (T, half >> l, 4) block.
+``merkle_levels`` is the per-level route (one ``hash_nodes`` launch per
+level) that the forest entries replace on the proving path; it stays as
+the yardstick they are timed against.
+
 A digest is 4 LE64 words (int64 bit patterns), so ``to_u64(d).view(uint8)``
 is its 32 bytes. Kernel K replaces the TPU kernel
 ``keccak_pallas._hash_call`` (ops/keccak_pallas.py:242) behind
-``hash_leaves`` / ``hash_leaves_flex`` / ``hash_nodes``. The wrappers launch
-it for CUDA tensors and run the ``*_plain`` twins for CPU tensors.
+``hash_leaves`` / ``hash_leaves_flex`` / ``hash_nodes`` and the forest
+wrappers. The wrappers launch it for CUDA tensors and run the ``*_plain``
+twins for CPU tensors.
 
 The twin keeps each 64-bit lane as one int64 tensor: ``<<`` wraps mod 2^64,
 and the arithmetic ``>>`` is masked to the bits a logical shift would give.
@@ -23,7 +33,7 @@ and the arithmetic ``>>`` is masked to the bits a logical shift would give.
 
 from __future__ import annotations
 
-from typing import List
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -177,8 +187,109 @@ def hash_nodes(level: torch.Tensor) -> torch.Tensor:
 
 def merkle_levels(leaves: torch.Tensor) -> List[torch.Tensor]:
     """Leaf digests (T, half, 4) -> every level up to the root (T, 1, 4),
-    one ``hash_nodes`` launch per level."""
+    one ``hash_nodes`` launch per level (the per-level route)."""
     levels = [leaves]
     while levels[-1].shape[1] > 1:
         levels.append(hash_nodes(levels[-1]))
     return levels
+
+
+def forest_views(buf: torch.Tensor, trees: int, half: int) -> List[torch.Tensor]:
+    """The levels of a level-major forest buffer of 4 T (2 half - 1) words:
+    level l is the (T, half >> l, 4) view at word 4 T (2 half - 2 half / 2^l),
+    leaf level first, root level (T, 1, 4) last."""
+    levels, off, rows = [], 0, half
+    while rows >= 1:
+        levels.append(buf.as_strided((trees, rows, 4), (4 * rows, 4, 1), off))
+        off += 4 * trees * rows
+        rows //= 2
+    return levels
+
+
+def merkle_forest_flex_plain(vals: torch.Tensor) -> List[torch.Tensor]:
+    """The twin of ``merkle_forest_flex``: the leaf twin, then
+    ``hash_nodes_plain`` per level, written into the same buffer layout."""
+    t, _, n = vals.shape
+    buf = torch.empty(4 * t * (n - 1), dtype=torch.int64, device=vals.device)
+    levels = forest_views(buf, t, n // 2)
+    levels[0].copy_(hash_leaves_flex_plain(vals))
+    for lo, hi in zip(levels, levels[1:]):
+        hi.copy_(hash_nodes_plain(lo))
+    return levels
+
+
+def merkle_forest_plain(values: torch.Tensor) -> List[torch.Tensor]:
+    return merkle_forest_flex_plain(values[:, None, :])
+
+
+#: Leaves each thread of a forest launch hashes, log2, before the block
+#: joins the threads' subtree roots: at most 5 (2^5 leaves and 2^5 - 1
+#: nodes per thread), lowered so that a forest still gives 2^14 threads:
+#: more leaves a thread keep its lanes busy longer against the block's
+#: partly idle upper levels, fewer keep a small forest's card full.
+FOREST_LOG_LEAVES_PER_THREAD = 5
+_FOREST_MIN_LOG_THREADS = 14
+
+
+def forest_log_thread(trees: int, half: int) -> int:
+    """log2 of the leaves a forest launch gives each thread."""
+    log_leaves = (trees * half).bit_length() - 1
+    return max(0, min(FOREST_LOG_LEAVES_PER_THREAD, log_leaves - _FOREST_MIN_LOG_THREADS))
+
+
+_TICKETS: Dict[Tuple[str, int], torch.Tensor] = {}
+
+
+def _tickets(device: torch.device, stream: int, trees: int) -> torch.Tensor:
+    """Per device and stream, at least ``trees`` int32 ticket counters for
+    the forest entries. They are zeroed once, here; each launch leaves them
+    zeroed again (the last block of a tree resets its ticket)."""
+    key = (str(device), stream)
+    have = _TICKETS.get(key)
+    if have is None or have.numel() < trees:
+        have = torch.zeros(max(trees, 64), dtype=torch.int32, device=device)
+        _TICKETS[key] = have
+    return have
+
+
+def _forest(vals: torch.Tensor, paired: bool) -> List[torch.Tensor]:
+    t, g, n = vals.shape
+    if not 1 <= g <= MAX_GROUP_ORACLES:
+        raise ValueError(f"group of {g} oracles: 1..{MAX_GROUP_ORACLES} fit one Keccak block")
+    if n < 4 or n & (n - 1):
+        raise ValueError(f"codeword length {n} must be a power of two >= 4")
+    if vals.device.type == "cpu":
+        return merkle_forest_flex_plain(vals)
+    buf = torch.empty(4 * t * (n - 1), dtype=torch.int64, device=vals.device)
+    if t == 0:
+        return forest_views(buf, t, n // 2)
+    lib = kernels.load("keccak")
+    log_half = n.bit_length() - 2
+    log_thread = forest_log_thread(t, n // 2)
+    tickets = _tickets(vals.device, kernels.stream_handle(vals.device), t)
+    if paired:
+        entry, rc = "keccak_forest", kernels.launch(
+            vals.device, lib.keccak_forest, vals.data_ptr(), buf.data_ptr(),
+            tickets.data_ptr(), t, log_half, log_thread)
+    else:
+        entry, rc = "keccak_group_forest", kernels.launch(
+            vals.device, lib.keccak_group_forest, vals.data_ptr(), buf.data_ptr(),
+            tickets.data_ptr(), t, g, log_half, log_thread)
+    kernels.check(rc, f"kernel K ({entry})")
+    kernels.count(entry, 1, vals.shape)
+    return forest_views(buf, t, n // 2)  # made while the card hashes
+
+
+def merkle_forest_flex(vals: torch.Tensor) -> List[torch.Tensor]:
+    """Every level of T group-leaf Merkle trees over vals (T, G, n) words,
+    G <= 8, n a power of two >= 4: leaf level (T, n/2, 4) first, roots
+    (T, 1, 4) last, views of one level-major buffer."""
+    _check(vals, 3, "merkle_forest_flex")
+    return _forest(vals, paired=False)
+
+
+def merkle_forest(values: torch.Tensor) -> List[torch.Tensor]:
+    """Every level of T paired-leaf Merkle trees over values (T, n) words
+    (leaf i pairs values i and i + n/2), as ``merkle_forest_flex``."""
+    _check(values, 2, "merkle_forest")
+    return _forest(values[:, None, :], paired=True)

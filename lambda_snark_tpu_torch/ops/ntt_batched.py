@@ -12,21 +12,41 @@ natural order in and out, for the plan's (S, q, omega) and any modulus
 the TPU kernel takes (D, B, S) 16-bit digit planes, this takes (B, S) int64
 words (``ops.modarith``'s layout) and returns the same values.
 
-CUDA tensors launch kernel T: entry ``ntt_rows`` for S <= 2^13 (one block per
-row tile, all log2 S stages in shared memory, 1/S folded into the store;
-also kernel N's leaf), the four-step of ``ops.ntt_large`` above (the
-plan's ``large``). CPU tensors run the plain twin, ``ops.ntt.ntt_forward`` /
-``ntt_inverse``.
+CUDA tensors launch kernel T: entry ``ntt_rows`` for S <= 2^13 (one pass:
+a block takes whole rows, up to 2^12 words of them, all log2 S stages in
+shared memory, 1/S folded into the store; also kernel N's leaf), the
+four-step of ``ops.ntt_large`` above (the plan's ``large``). CPU tensors
+run the plain twin, ``ops.ntt.ntt_forward`` / ``ntt_inverse``.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from .. import kernels
 from . import modarith
 from .ntt import NttPlan, ntt_forward, ntt_inverse
-from .ntt_large import MAX_LEAF_LEN, check_rows, ntt_forward_large, ntt_inverse_large
+from .ntt_large import (
+    MAX_LEAF_LEN,
+    Pass,
+    cached_descs,
+    check_rows,
+    ntt_forward_large,
+    ntt_inverse_large,
+    pass_struct,
+)
+
+
+def row_pass(plan: NttPlan, rows: int, inverse: bool) -> Pass:
+    """The row entry's pass over B = ``rows`` rows: one level of 2^k rows,
+    2^k the largest power of two dividing B, every row an S-point
+    sub-transform; the launch takes B / 2^k such row groups, and the
+    kernel puts as many rows of a group in a block as its tile holds."""
+    k = (rows & -rows).bit_length() - 1
+    return Pass(leaf=plan, inverse=inverse, levels=((1 << k, plan.m, plan.m),), in_elem=1,
+                out_elem=1, src=0, dst=2, scale=plan.inv_m if inverse else 1)
 
 
 def _launch_rows(plan: NttPlan, x: torch.Tensor, inverse: bool) -> torch.Tensor:
@@ -35,11 +55,15 @@ def _launch_rows(plan: NttPlan, x: torch.Tensor, inverse: bool) -> torch.Tensor:
     if x.shape[0] == 0:
         return out
     fn = kernels.load("ntt").ntt_rows
-    tw = plan.tw_inv if inverse else plan.tw
-    with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), out.data_ptr(), tw.data_ptr(), plan.inv_m if inverse else 1,
-                plan.q, plan.m.bit_length() - 1, x.shape[0],
-                torch.cuda.current_stream().cuda_stream)
+
+    def build():
+        p = row_pass(plan, x.shape[0], inverse)
+        group = p.levels[0][0]
+        return pass_struct(p, x, out, x.shape[0] // group, plan.m * group, 1)
+
+    desc = cached_descs(plan, ("rows", inverse, x.shape[0]), build)
+    desc.x, desc.y = x.data_ptr(), out.data_ptr()
+    rc = kernels.launch(x.device, fn, ctypes.addressof(desc), plan.q)
     kernels.check(rc, "kernel T (row NTT)")
     kernels.count("ntt_rows", 1, x.shape, f"{'inverse' if inverse else 'forward'} mod {plan.q}")
     return out

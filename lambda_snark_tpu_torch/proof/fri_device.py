@@ -3,8 +3,9 @@ the JAX package's ``proof/fri_device.py``, on its per-layer host-transcript
 branch, ``DEVICE_TRANSCRIPT = False``).
 
 - codewords stay on the device as (S, n) or (S, K, n) int64 words;
-- every Merkle forest is built there by kernel K (``ops.keccak``), leaf level
-  to root; the host sees 32-byte roots;
+- every Merkle forest is built there by one launch of kernel K
+  (``ops.keccak.merkle_forest``), leaf level to root; the host sees 32-byte
+  roots;
 - each fold layer is a handful of torch ops with a cached 1/x table;
 - the DEEP combination runs in torch ops (Montgomery batch inversion, with
   one host inverse per row);
@@ -69,10 +70,9 @@ class DevForest:
         return len(self.roots)
 
 
-def forest_from_leaves(leaves: torch.Tensor) -> DevForest:
-    levels = keccak.merkle_levels(leaves)
+def _forest(levels: List[torch.Tensor]) -> DevForest:
     roots = [bytes(r) for r in digest_bytes(levels[-1][:, 0])]
-    return DevForest(levels=levels, roots=roots, num_leaves=leaves.shape[1])
+    return DevForest(levels=levels, roots=roots, num_leaves=levels[0].shape[1])
 
 
 def _check_size(n: int) -> None:
@@ -81,16 +81,17 @@ def _check_size(n: int) -> None:
 
 
 def commit_planes_dev(values: torch.Tensor) -> DevForest:
-    """(T, n) codewords -> T trees; leaf i pairs values (i, i + n/2)."""
+    """(T, n) codewords -> T trees; leaf i pairs values (i, i + n/2). One
+    launch of kernel K builds every level."""
     _check_size(values.shape[-1])
-    return forest_from_leaves(keccak.hash_leaves(values))
+    return _forest(keccak.merkle_forest(values))
 
 
 def commit_planes_dev_groups(vals: torch.Tensor) -> DevForest:
     """(S, K, n) codewords -> S interleaved-group trees; leaf i holds every
-    oracle's pair (i, i + n/2)."""
+    oracle's pair (i, i + n/2). One launch of kernel K builds every level."""
     _check_size(vals.shape[-1])
-    return forest_from_leaves(keccak.hash_leaves_flex(vals))
+    return _forest(keccak.merkle_forest_flex(vals))
 
 
 # --- fold -----------------------------------------------------------------------

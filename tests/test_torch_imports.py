@@ -336,3 +336,66 @@ def test_long_routes_match_plain_on_card():
                        ntt_inverse_large_plain(large, x, pre=pre, post=post))
     assert torch.equal(ntt_forward_large(large, x, pre=pre, post=post),
                        ntt_forward_large_plain(large, x, pre=pre, post=post))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 3, 8])
+def test_forest_entries_match_plain_on_card(g):
+    """Kernel K's forest entries (every level in one launch) against their
+    twin on the card, for trees smaller and larger than one 64-thread
+    block, with each thread taking 1 to 16 leaves."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from lambda_snark_tpu_torch.ops import keccak
+
+    rng = np.random.default_rng(9)
+    dev = torch.device("cuda")
+    saved = keccak.FOREST_LOG_LEAVES_PER_THREAD, keccak._FOREST_MIN_LOG_THREADS
+    try:
+        for log_thread in (0, 2, 4):
+            keccak.FOREST_LOG_LEAVES_PER_THREAD, keccak._FOREST_MIN_LOG_THREADS = log_thread, 0
+            for trees, half in ((3, 2), (2, 64), (5, 1 << 10), (16, 1 << 14)):
+                vals = modarith.to_words(rng.integers(0, 1 << 63, size=(trees, g, 2 * half),
+                                                      dtype=np.uint64), dev)
+                got = (keccak.merkle_forest(vals[:, 0].contiguous()) if g == 1
+                       else keccak.merkle_forest_flex(vals))
+                want = keccak.merkle_forest_flex_plain(vals)
+                assert len(got) == len(want)
+                assert all(torch.equal(a, b) for a, b in zip(got, want)), (log_thread, half)
+    finally:
+        keccak.FOREST_LOG_LEAVES_PER_THREAD, keccak._FOREST_MIN_LOG_THREADS = saved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [port.NTT_FRIENDLY_MODULUS, port.NTT_MODULUS, 2013265921])
+def test_dft_pass_deep_routes_match_plain_on_card(monkeypatch, q):
+    """Kernel T's ``dft_pass`` on three- and four-pass routes (the leaf cap
+    forced to 2^5 points) and on rows of 2 to 2^13 points, forward and
+    inverse with ``pre`` / ``post`` / ``scale``, against the twins."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from lambda_snark_tpu_torch.ops import ntt_large
+    from lambda_snark_tpu_torch.ops.ntt import NttPlan, ntt_forward, ntt_inverse
+    from lambda_snark_tpu_torch.ops.ntt_batched import ntt_forward_batched, ntt_inverse_batched
+    from lambda_snark_tpu_torch.proof.fri import root_of_order
+
+    rng = np.random.default_rng(10)
+    dev = torch.device("cuda")
+    words = lambda shape: modarith.to_words(rng.integers(0, q, size=shape, dtype=np.uint64), dev)
+    for size in (2, 4, 8, 16, 128, 512, 1 << 12):
+        plan = NttPlan.create(size, q, root_of_order(q, size), device=dev)
+        x = words((6, size))
+        assert torch.equal(ntt_forward_batched(plan, x), ntt_forward(plan, x)), size
+        assert torch.equal(ntt_inverse_batched(plan, x), ntt_inverse(plan, x)), size
+    monkeypatch.setattr(ntt_large, "_MAX_LOG_LEAF", 5)
+    deep = (12, 3) if q == port.NTT_FRIENDLY_MODULUS else (16, 4)  # 2-adicity 13 for the 44-bit q
+    for log_m, n_passes in ((11, 3), (12, 3), deep):
+        m = 1 << log_m
+        large = ntt_large.NttLargePlan.create(m, root_of_order(q, m), device=dev, q=q)
+        assert large.n_passes == n_passes
+        x, pre, post = words((3, m)), words((m,)), words((m,))
+        assert torch.equal(ntt_large.ntt_forward_large(large, x, pre=pre, post=post),
+                           ntt_large.ntt_forward_large_plain(large, x, pre=pre, post=post))
+        assert torch.equal(ntt_large.ntt_inverse_large(large, x, pre=pre, post=post, scale=3),
+                           ntt_large.ntt_inverse_large_plain(large, x, pre=pre, post=post,
+                                                              scale=3))

@@ -117,3 +117,70 @@ def test_wrappers_reject(bad):
     else:
         with pytest.raises(ValueError):
             keccak.hash_nodes(torch.zeros((1, 4, 3), dtype=torch.int64))
+
+
+# --- whole forests: kernel K's forest entries (one launch per forest) --------
+
+# (G, leaves per tree): G = 1 is the paired FRI leaf; trees from 2 leaves to
+# 2^12, smaller and larger than the kernel's 2^8-leaf subtree block
+_FORESTS = [(1, 2), (1, 256), (1, 4096), (2, 4), (2, 512), (4, 64), (4, 2048),
+            (8, 2), (8, 1024), (3, 16)]
+
+
+@pytest.mark.parametrize("g,half", _FORESTS)
+def test_forest_matches_jax_levels_and_host_tree(g, half):
+    """The forest twin's level-major buffer, level by level, equals the JAX
+    package's ``merkle_levels_u64_pairs`` / ``merkle_levels_u64_groups`` and
+    the host ``MerkleTree``; ``commit_planes_dev*`` hand back its views."""
+    vals = _u64((2, g, 2 * half), seed=1000 * g + half)
+    words = modarith.to_words(vals)
+    levels = (keccak.merkle_forest(words[:, 0].contiguous()) if g == 1
+              else keccak.merkle_forest_flex(words))
+    if g == 1:
+        want = kj.merkle_levels_u64_pairs(vals[:, 0, :half], vals[:, 0, half:])
+    else:
+        want = kj.merkle_levels_u64_groups(vals)
+    assert len(levels) == len(want) == half.bit_length()
+    for ours, theirs in zip(levels, want):
+        assert np.array_equal(digest_bytes(ours), kj.digest_words_to_bytes(np.asarray(theirs)))
+    forest = (commit_planes_dev(words[:, 0].contiguous()) if g == 1
+              else commit_planes_dev_groups(words))
+    assert all(torch.equal(a, b) for a, b in zip(forest.levels, levels))
+    for t in range(2):
+        leaves = [b"".join(struct.pack("<QQ", int(vals[t, k, i]), int(vals[t, k, i + half]))
+                           for k in range(g)) for i in range(half)]
+        tree = merkle.MerkleTree(leaves)
+        assert forest.roots[t] == tree.root
+        i = half - 1
+        path = [digest_bytes(lvl[t])[(i >> d) ^ 1].tobytes()
+                for d, lvl in enumerate(forest.levels[:-1])]
+        assert path == tree.path(i)
+
+
+@pytest.mark.parametrize("trees,half", [(1, 2), (3, 8), (16, 64)])
+def test_forest_levels_are_views_of_one_level_major_buffer(trees, half):
+    """Level l is the contiguous (T, half >> l, 4) block at word
+    4 T (2 half - 2 half / 2^l) of one buffer of 4 T (2 half - 1) words."""
+    vals = modarith.to_words(_u64((trees, 2, 2 * half), seed=trees))
+    levels = keccak.merkle_forest_flex(vals)
+    base = levels[0]._base
+    assert base.numel() == 4 * trees * (2 * half - 1)
+    for lvl, level in enumerate(levels):
+        rows = half >> lvl
+        assert level.shape == (trees, rows, 4) and level.is_contiguous()
+        assert level._base is base
+        assert level.storage_offset() == 4 * trees * (2 * half - (2 * half >> lvl))
+    assert torch.equal(levels[-1], keccak.merkle_levels(keccak.hash_leaves_flex(vals))[-1])
+
+
+@pytest.mark.parametrize("bad", ["not_pow2", "too_short", "too_many", "dtype"])
+def test_forest_wrappers_reject(bad):
+    with pytest.raises(ValueError):
+        if bad == "not_pow2":
+            keccak.merkle_forest(torch.zeros((1, 12), dtype=torch.int64))
+        elif bad == "too_short":
+            keccak.merkle_forest(torch.zeros((1, 2), dtype=torch.int64))
+        elif bad == "too_many":
+            keccak.merkle_forest_flex(torch.zeros((1, 9, 8), dtype=torch.int64))
+        else:
+            keccak.merkle_forest_flex(torch.zeros((1, 2, 8), dtype=torch.int32))

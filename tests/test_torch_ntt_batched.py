@@ -105,3 +105,35 @@ def test_four_step_matches_jax_ntt_large(inverse):
                                              jnp.asarray(u64_to_limbs(modarith.to_u64(x), 4)))))
     ours = ntt_inverse_large if inverse else ntt_forward_large
     assert torch.equal(ours(NttLargePlan.create(m, omega), x), want)
+
+
+# the leaf cap forced small: (log2 of the leaf, log2 m) give three passes
+# (2, 5: 2 x 4 x 4) and four (2, 7: 2 x 4 x 4 x 4) at sizes the CPU runs
+@pytest.mark.parametrize("q", [GL, Q45, HEALTHCARE_DUMP_MODULUS])
+@pytest.mark.parametrize("leaf,log_m,n_passes", [(2, 5, 3), (2, 7, 4)])
+def test_deep_four_step_matches_ops_ntt_and_jax(monkeypatch, q, leaf, log_m, n_passes):
+    """Past two leaves the C-point row transforms are a four-step of their
+    own: with the leaf cap forced small the plan takes three and four
+    passes, and forward and inverse, with ``pre`` / ``post`` / ``scale``,
+    equal ``ops.ntt`` and the JAX package's four-step, exactly."""
+    from lambda_snark_tpu_torch.ops import ntt_large
+
+    monkeypatch.setattr(ntt_large, "_MAX_LOG_LEAF", leaf)
+    m = 1 << log_m
+    omega = root_of_order(q, m)
+    large, plan = NttLargePlan.create(m, omega, q=q), NttPlan.create(m, q, omega)
+    assert large.n_passes == n_passes == len(ntt_large.passes(large, False))
+    x, pre, post = _words(q, (3, m), 1), _words(q, (m,), 2), _words(q, (m,), 3)
+    fsp = four_step_plan(m, q, omega)
+    planes = jnp.asarray(words_to_planes(x, fsp.plan_r.ctx.d))
+    fwd = ntt_forward_large(large, x)
+    assert torch.equal(fwd, ntt_forward(plan, x))
+    assert torch.equal(fwd, planes_to_words(np.asarray(jax_forward_large(fsp, planes))))
+    inv = ntt_inverse_large(large, x)
+    assert torch.equal(inv, ntt_inverse(plan, x))
+    assert torch.equal(inv, planes_to_words(np.asarray(jax_inverse_large(fsp, planes))))
+    mul = lambda a, b: modarith.mul_mod(a, b, q)
+    assert torch.equal(ntt_forward_large(large, x, pre=pre, post=post),
+                       mul(ntt_forward(plan, mul(x, pre)), post))
+    assert torch.equal(ntt_inverse_large(large, x, pre=pre, post=post, scale=7),
+                       mul(mul(ntt_inverse(plan, mul(x, pre)), post), 7 * m % q))

@@ -80,9 +80,9 @@ def test_plans_and_wrappers_reject(bad):
     if bad == "not_pow2":
         with pytest.raises(ValueError):
             NttLargePlan.create(48, 1)
-    elif bad == "too_large":  # past two 2^13-word tiles
+    elif bad == "too_large":  # past the field's roots: Goldilocks has none of order 2^33
         with pytest.raises(ValueError):
-            NttLargePlan.create(1 << 27, fri.root_of_order(P, 1 << 27))
+            NttLargePlan.create(1 << 33, fri.root_of_order(P, 1 << 32))
     elif bad == "not_primitive":
         with pytest.raises(ValueError):
             NttLargePlan.create(16, fri.root_of_order(P, 8))
@@ -132,3 +132,61 @@ def test_final_polynomial_inverts_the_codeword(n, final_len):
                            modarith.to_words(np.eye(1, n, final_len, dtype=np.uint64)))
         with pytest.raises(DomainError):
             _final_polynomial(high, off, om, final_len)
+
+
+@pytest.mark.parametrize("r,c", [(2, 4), (8, 8), (8, 16)])
+def test_store_order_twiddle_table(r, c):
+    """Pass 1's twiddles lie in its store's order, omega^(h b) at h C + b,
+    and the plan keeps them for both directions."""
+    from lambda_snark_tpu_torch.core import field
+    from lambda_snark_tpu_torch.ops.ntt_large import store_order_table
+
+    m = r * c
+    omega = fri.root_of_order(P, m)
+    table = modarith.to_u64(store_order_table(omega, r, c, P))
+    assert [int(v) for v in table] == [pow(omega, h * b, P) for h in range(r) for b in range(c)]
+    plan = NttLargePlan.create(m, omega)
+    assert (plan.r, plan.c) == (r, c)
+    assert torch.equal(plan.pw, store_order_table(omega, r, c, P))
+    assert torch.equal(plan.pw_inv, store_order_table(field.mod_inverse(omega, P), r, c, P))
+
+
+@pytest.mark.parametrize("q", [P, 2013265921])
+def test_plan_past_2pow26(q):
+    """A 2^27-point plan is three passes of 2^9-point leaves (made on the
+    meta device here: tables of 2^27 words, no transform at that size)."""
+    from lambda_snark_tpu_torch.ops.ntt_large import MAX_LEVELS, passes
+
+    m = 1 << 27
+    plan = NttLargePlan.create(m, fri.root_of_order(q, m), device="meta", q=q)
+    assert (plan.r, plan.c, plan.n_passes) == (1 << 9, 1 << 18, 3)
+    assert plan.sub.r == plan.sub.c == 1 << 9 and plan.sub.sub is None
+    assert plan.pw.shape == (m,) and plan.pw_inv.shape == (m,) and plan.sub.pw.shape == (1 << 18,)
+    steps = passes(plan, inverse=True, scale=plan.inv_m)
+    assert [p.leaf.m for p in steps] == [1 << 9] * 3
+    assert [(p.src, p.dst) for p in steps] == [(0, 1), (1, 1), (1, 2)]
+    assert [p.levels for p in steps] == [
+        ((1 << 18, 1, 1),),
+        ((1 << 9, 1, 1), (1 << 9, 1 << 18, 1 << 18)),
+        ((1 << 9, 1 << 18, 1), (1 << 9, 1 << 9, 1 << 9))]
+    assert [(p.in_elem, p.out_elem) for p in steps] == [(1 << 18, 1 << 18), (1 << 9, 1 << 9),
+                                                        (1, 1 << 18)]
+    assert steps[-1].scale == plan.inv_m and all(len(p.levels) <= MAX_LEVELS for p in steps)
+
+
+@pytest.mark.parametrize("s_len,rows", [(8, 6), (256, 64), (1 << 13, 3)])
+def test_row_entry_pass_layout(s_len, rows):
+    """Kernel T's row entry: one pass whose level groups the rows a tile
+    holds; run as its plain twin it is ``ops.ntt``, both directions."""
+    from lambda_snark_tpu_torch.ops.ntt import ntt_forward, ntt_inverse
+    from lambda_snark_tpu_torch.ops.ntt_batched import row_pass
+    from lambda_snark_tpu_torch.ops.ntt_large import run_passes_plain
+
+    plan = NttPlan.create(s_len, P, fri.root_of_order(P, s_len))
+    x = modarith.to_words(_vals((rows, s_len), seed=s_len))
+    for inverse, want in ((False, ntt_forward(plan, x)), (True, ntt_inverse(plan, x))):
+        p = row_pass(plan, rows, inverse)
+        group = p.levels[0][0]
+        assert rows % group == 0 and (rows // group) % 2 == 1
+        got = run_passes_plain(P, 1, x.reshape(rows // group, group * s_len), [p])
+        assert torch.equal(got.reshape(rows, s_len), want)
