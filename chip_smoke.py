@@ -7,12 +7,13 @@ Phases, each printing one flushed line with the seconds since start:
 
 1. the device: ``torch.cuda`` name and ``nvidia-smi`` name and power limit;
 2. the build of every CUDA kernel from ``lambda_snark_tpu_torch/csrc``
-   (one ``nvcc`` per source, started together), each kernel's registers and
-   spills, and the SASS instruction mix of kernel T's ``dft_pass`` and
-   kernel K's forest kernel (G = 1 and 4, the kind-7 path's);
+   (one ``nvcc`` per source, started together), each kernel function's
+   registers and spills, and the SASS instruction mix of kernel T's
+   ``dft_pass``, kernel K's forest kernel (G = 1 and 4, the kind-7 path's)
+   and kernels Q and R at each cluster size;
 3. kernel Q against its plain PyTorch twin at B = 256, bit-exact: the 44-bit
    field at m = 4096 (plain prover) and m = 2048 (ZK prover), Goldilocks at
-   m = 4096;
+   m = 4096, each at the cluster size ``kernels.cluster_size`` picks;
 4. kernel R against its plain twin at n = 4096, k = 2, B = 256, bit-exact,
    for messages of 4096 words (plain prover) and 2049 (ZK prover);
 5. ``prove_r1cs_batched`` at m = n = 4096, k = 2, B = 256 on the card: every
@@ -30,7 +31,8 @@ Phases, each printing one flushed line with the seconds since start:
    64 x 2^16 (the kind-7 LDE) and 1 x 2^20, and its leaf entry at B = 128
    and at 16 x 512 (FRI's final polynomials);
 10. kernel Q (Goldilocks) at m = 8192 x 16 rows and kernel R at n = 8192,
-    k = 1, a message of 8192 words x 16 rows, the kind-7 shapes;
+    k = 1, a message of 8192 words x 16 rows, the kind-7 shapes (a row over
+    a cluster of 8 blocks);
 11. ``prove_r1cs_succinct_batch`` at m = 2^13, S = 16, default FriParams on
     the card: every proof passes ``verify_r1cs_succinct``, proofs 0 and 1
     equal a ``device="cpu"`` run byte for byte, a flipped byte in a FRI path
@@ -51,14 +53,17 @@ Phases, each printing one flushed line with the seconds since start:
     four-step at 16 and 48 x 2^14, 16 and 64 x 2^17 and 1 x 2^21; then the
     three-pass four-step at 1 x 2^27 (Goldilocks, past the two-pass range),
     with the peak device memory of that phase;
-14. kernels Q and R past one tile, m = n = 2^14 x 16 rows: their long
-    routes through kernel T against ``quotient_plain`` and
-    ``ring_commit_plain``, and each elementwise entry of the routes against
-    its twin;
+14. kernels Q and R at m = n = 2^14 x 16 rows: their long routes through
+    kernel T (``quotient_long``, ``ring_commit_long``, called directly)
+    against ``quotient_plain`` and ``ring_commit_plain``, and each
+    elementwise entry of the routes against its twin; then both kernels in
+    one launch each (clusters of 8 blocks) at 16 x 2^14 and 16 x 2^16;
 15. ``prove_r1cs_succinct_batch`` at m = 2^14, S = 16 on the card: every
     proof verifies, proofs 0 and 1 equal a ``device="cpu"`` run byte for
     byte, the median of five batches, and every entry of the path launched
-    (kernel K: 8 forest launches a batch, no per-level launch); then kernel
+    (kernels Q and R once each and kernel T's four-step twice, for the LDE,
+    with no launch of the long routes' entries; kernel K: 8 forest launches
+    a batch, no per-level launch); then kernel
     K at every input shape that run launched it at (the group forest
     16 x 4 x 2^17, each paired-leaf forest), kernel T at each of its shapes
     that phase 13 did not hold, against their twins, and the forest times
@@ -76,7 +81,8 @@ kind 7 at m = 2^14, the streams, and the ``kernels`` line: for each kernel
 on each path its time, its plain twin's time, its bound and its launches in
 that path's run, counted per C entry (the four-step NTT's entry launches
 two kernels, one per pass) and, for kernels K and T on the m = 2^14 kind-7
-path, per input shape and direction.
+path, per input shape and direction; kernels Q and R also give the blocks
+of the cluster each row ran on (null for the long routes).
 
 Any failure ends the script with a non-zero exit and no result line. The
 last line is ``{"ok": true, "device": {...}}``. It needs one CUDA card; it
@@ -108,8 +114,14 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # kernels' arithmetic (csrc/modmath.cuh): a 64 x 64 -> 128 product is four
 # 32 x 32 -> 64 multiplies; Barrett (44-bit field) adds two more partial
 # 64-bit products, the Goldilocks fold one 32 x 32 multiply; an add or
-# subtract is a 64-bit add (2) plus a compare-select (1).
+# subtract is a 64-bit add (2) plus a compare-select (1). Kernel Q's 44-bit
+# field multiplies by known constants (twiddles, tables, 1/m) with Shoup's
+# product w x - umulhi(x, w') q mod 2^64: the low word of x w (3 multiplies),
+# umulhi (4), the low word of the quotient times q (3) and a 64-bit subtract
+# (2), 12 where Barrett counts 16 (OPS_MUL_TABLE); a product of two data
+# words keeps Barrett's count.
 OPS_MUL = {"q45": 16, "goldilocks": 12, "barrett": 16}
+OPS_MUL_TABLE = {"q45": 12, "goldilocks": 12}
 OPS_ADD = 3
 # Least 32-bit instructions per Keccak-f[1600] permutation (csrc/keccak.cu):
 # per round and 32-bit half of the 25 lanes, theta's column sums take 2
@@ -131,11 +143,18 @@ KIND7_ENTRIES = ("keccak_group_forest", "keccak_forest", "ntt_four_step", "ntt_r
 KECCAK_PER_LEVEL = ("keccak_group_leaves", "keccak_leaves", "keccak_nodes")
 KIND7_FORESTS, KIND7_LONG_FORESTS = 7, 8
 FOREST_TIME_REPS = 20  # host-clock leaves-to-roots times, median
-# kind 7 one size up, m = 2^14: kernels Q and R take their long routes
-# through kernel T's four-step
+# kind 7 one size up, m = 2^14: kernels Q and R each run once a batch, a
+# row over a cluster of 8 blocks, and kernel T's four-step only for the LDE
+# (one forward transform, two passes); the long routes' entries run no time
 KIND7_LONG_M = 1 << 14
 KIND7_LONG_ENTRIES = ("keccak_group_forest", "keccak_forest", "ntt_four_step", "ntt_rows",
-                      "quotient_pointwise", "ring_twist", "ring_accumulate", "ring_finish")
+                      "quotient_goldilocks", "ring_commit_goldilocks")
+KIND7_LONG_COUNTS = {"quotient_goldilocks": 1, "ring_commit_goldilocks": 1, "ntt_four_step": 2,
+                     "quotient_pointwise": 0, "ring_twist": 0, "ring_accumulate": 0,
+                     "ring_finish": 0}
+# rows past a cluster's shared memory take the long routes; 2^16 is the
+# longest row kernels Q and R take in one launch
+ONE_LAUNCH_M = 1 << 16
 # the four-step past two passes: 1 x 2^27 Goldilocks words, three passes
 NTT_DEEP_LOG_M = 27
 # prove_r1cs_stream: three full batches and a partial tail; ZK at m = 2048
@@ -169,6 +188,24 @@ def sass_mix(path: str) -> dict:
             if key:
                 mix[name][key] += 1
     return mix
+
+
+def ptxas_resources(log: str) -> list:
+    """(kernel function, registers, spills) for each entry function of an
+    ``nvcc -Xptxas -v`` log."""
+    import re
+
+    out, name, spills = [], None, ""
+    for line in log.splitlines():
+        found = re.search(r"Compiling entry function '(\S+)'", line)
+        if found:
+            name, spills = found.group(1), ""
+        elif "spill" in line:
+            spills = line.strip()
+        elif "registers" in line and name:
+            out.append((name, line.split(":", 1)[-1].strip(), spills))
+            name = None
+    return out
 
 
 def nonzero(launches: dict) -> dict:
@@ -209,10 +246,12 @@ def bound_ms(nbytes: float, ops: float):
 def quotient_work(rows: int, m: int, field: str):
     log_m = m.bit_length() - 1
     butterflies = 7 * (m // 2) * log_m * rows
-    muls = butterflies + 9 * m * rows  # + residual, 1/m, twist (x3), a*b, untwist
+    table_muls = butterflies + 7 * m * rows  # twiddles, 1/m and twist (x3), untwist
+    data_muls = 2 * m * rows  # the residual a b and a_odd b_odd
     adds = 2 * butterflies + m * rows
     nbytes = 7 * rows * m * 8 + 4 * rows + (2 * (m // 2) + 2 * m) * 8
-    return nbytes, muls * OPS_MUL[field] + adds * OPS_ADD
+    return nbytes, (table_muls * OPS_MUL_TABLE[field] + data_muls * OPS_MUL[field]
+                    + adds * OPS_ADD)
 
 
 def ring_work(rows: int, n: int, k: int, msg_len: int):
@@ -318,6 +357,12 @@ def forest_times(np, torch, dev, rng, shapes, tag: str) -> list:
               f"{med['forest']:.4f} ms in one launch, {med['per_level']:.4f} ms per level "
               f"(median of {FOREST_TIME_REPS})")
     return records
+
+
+def cluster_of(kernels, rows: int, m: int, buffers: int) -> int:
+    """Blocks per row kernel Q (three buffers of m words a row) or R (two)
+    takes at (rows, m)."""
+    return kernels.cluster_size(rows, m, buffers * m)
 
 
 def elementwise_work(read_bytes: int, write_bytes: int, muls: int, adds: int):
@@ -464,8 +509,10 @@ def kind7_phases(np, torch, lst, dev, rng, hold, report):
     a, b = words((s, m), gl), words((s, m), gl)
     c = modarith.mul_mod(a, b, gl)
     report["quotient_goldilocks_kind7"] = hold(
-        f"phase 10 kernel Q goldilocks m={m} rows={s}", lambda *v: quotient(qplan, *v),
-        lambda *v: quotient_plain(qplan, *v), (a, b, c), quotient_work(s, m, "goldilocks"))
+        f"phase 10 kernel Q goldilocks m={m} rows={s} cluster={cluster_of(kernels, s, m, 3)}",
+        lambda *v: quotient(qplan, *v), lambda *v: quotient_plain(qplan, *v), (a, b, c),
+        quotient_work(s, m, "goldilocks"))
+    report["quotient_goldilocks_kind7"]["cluster"] = cluster_of(kernels, s, m, 3)
     ctx7 = lst.LweContext(lst.Params(lst.SecurityLevel.BITS128,
                                      lst.Profile.ring_b(n=m, k=1, q=gl, sigma=SIGMA)),
                           context_seed=0)
@@ -474,9 +521,11 @@ def kind7_phases(np, torch, lst, dev, rng, hold, report):
     e_draws = torch.from_numpy(rng.integers(-39, 40, size=(s, m), dtype=np.int32)).to(dev)
     msg = words((s, m), gl)
     report["ring_commit_kind7"] = hold(
-        f"phase 10 kernel R n={m} k=1 rows={s} msg_len={m}", lambda *v: ring_commit(ring7, *v),
-        lambda *v: ring_commit_plain(ring7, *v), (s_draws, e_draws, msg),
-        ring_work(s, m, 1, m))
+        f"phase 10 kernel R n={m} k=1 rows={s} msg_len={m} "
+        f"cluster={cluster_of(kernels, s, m, 2)}",
+        lambda *v: ring_commit(ring7, *v), lambda *v: ring_commit_plain(ring7, *v),
+        (s_draws, e_draws, msg), ring_work(s, m, 1, m))
+    report["ring_commit_kind7"]["cluster"] = cluster_of(kernels, s, m, 2)
 
     # --- phase 11: prove_r1cs_succinct_batch on the card -------------------------
     r1cs7 = kind7_circuit(lst, m)
@@ -591,8 +640,10 @@ def kind7_phases(np, torch, lst, dev, rng, hold, report):
 
 def kernel_t_phases(np, torch, lst, dev, rng, hold, report):
     """Phases 13-14: kernel T against ``ops.ntt`` (rows and four-step, both
-    directions, three fields), then the long routes of kernels Q and R at
-    m = n = 2^14 x 16 rows, each elementwise entry against its twin."""
+    directions, three fields), then kernels Q and R at m = n = 2^14 x 16
+    rows, by their long routes (each elementwise entry against its twin)
+    and in one launch, and in one launch at 2^16."""
+    from lambda_snark_tpu_torch import kernels
     from lambda_snark_tpu_torch.commit.lwe import goldilocks_ring_plan
     from lambda_snark_tpu_torch.core.params import HEALTHCARE_DUMP_MODULUS
     from lambda_snark_tpu_torch.ops import modarith
@@ -669,17 +720,20 @@ def kernel_t_phases(np, torch, lst, dev, rng, hold, report):
     phase(f"phase 13 three-pass four-step at 1x2^{NTT_DEEP_LOG_M}: peak device memory "
           f"{peak / 2 ** 30:.2f} GiB (torch.cuda.max_memory_allocated)")
 
-    # --- phase 14: the long routes of kernels Q and R ---------------------------
+    # --- phase 14: kernels Q and R at m = n = 2^14 and 2^16 ----------------------
+    # the long routes, called directly at 16 x 2^14, with each elementwise
+    # entry against its twin; then the one-launch kernels at 16 x 2^14 (the
+    # m = 2^14 kind-7 shapes) and 16 x 2^16, each launched once a call
     m, s = KIND7_LONG_M, KIND7_S
     qplan = qmod.QuotientPlan.create(m, gl, field_psi_for(m, gl), device=dev)
     a, b = words((s, m), gl), words((s, m), gl)
     c = modarith.mul_mod(a, b, gl)
     c[1, 5] = modarith.add_mod(c[1:2, 5:6], torch.ones_like(c[1:2, 5:6]), gl)[0, 0]
-    if qmod.quotient(qplan, a, b, c)[4].tolist() != [i != 1 for i in range(s)]:
+    if qmod.quotient_long(qplan, a, b, c)[4].tolist() != [i != 1 for i in range(s)]:
         raise RuntimeError("kernel Q long route: validity flags wrong")
     report["quotient_long"] = hold(
         f"phase 14 kernel Q long route goldilocks m={m} rows={s}",
-        lambda *v: qmod.quotient(qplan, *v), lambda *v: qmod.quotient_plain(qplan, *v),
+        lambda *v: qmod.quotient_long(qplan, *v), lambda *v: qmod.quotient_plain(qplan, *v),
         (a, b, c), quotient_work(s, m, "goldilocks"))
     odd = [ntt_forward_large(qplan.ntt.large, p, pre=qplan.ntt.psi_pows)
            for p in (a, b, c)]  # stand-ins for the odd-coset evaluations
@@ -697,7 +751,7 @@ def kernel_t_phases(np, torch, lst, dev, rng, hold, report):
     msg = words((s, m), gl)
     report["ring_commit_long"] = hold(
         f"phase 14 kernel R long route n={m} k=1 rows={s} msg_len={m}",
-        lambda *v: rmod.ring_commit(ring, *v), lambda *v: rmod.ring_commit_plain(ring, *v),
+        lambda *v: rmod.ring_commit_long(ring, *v), lambda *v: rmod.ring_commit_plain(ring, *v),
         (s_draws, e_draws, msg), ring_work(s, m, 1, m))
     report["ring_twist"] = hold(
         f"phase 14 kernel R twist n={m} rows={s}", lambda v: rmod.ring_twist(ring, v),
@@ -713,6 +767,45 @@ def kernel_t_phases(np, torch, lst, dev, rng, hold, report):
         f"phase 14 kernel R finish n={m} rows={s} msg_len={m}",
         lambda *v: rmod.ring_finish(ring, *v), lambda *v: rmod.ring_finish_plain(ring, *v),
         (x, e_draws, msg), elementwise_work(2 * s * m * 8 + s * m * 4, s * m * 8, 0, 3 * s * m))
+
+    for size in (m, ONE_LAUNCH_M):
+        tag = "kind7_2pow14" if size == m else "2pow16"
+        qp = qplan if size == m else qmod.QuotientPlan.create(size, gl, field_psi_for(size, gl),
+                                                              device=dev)
+        rp = ring if size == m else rmod.RingCommitPlan.create(
+            rng.integers(0, gl, size=(1, size), dtype=np.uint64), goldilocks_ring_plan(size, dev))
+        if size != m:
+            a, b = words((s, size), gl), words((s, size), gl)
+            c = modarith.mul_mod(a, b, gl)
+            s_draws = torch.from_numpy(rng.integers(-39, 40, size=(1, s, size),
+                                                    dtype=np.int32)).to(dev)
+            e_draws = torch.from_numpy(rng.integers(-39, 40, size=(s, size),
+                                                    dtype=np.int32)).to(dev)
+            msg = words((s, size), gl)
+        kernels.reset_launches()
+        qmod.quotient(qp, a, b, c)
+        rmod.ring_commit(rp, s_draws, e_draws, msg)
+        counts = kernels.launches()
+        if (counts["quotient_goldilocks"], counts["ring_commit_goldilocks"]) != (1, 1) \
+                or sum(counts.values()) != 2:
+            raise RuntimeError(f"m={size}: kernels Q and R not in one launch each: "
+                               f"{nonzero(counts)}")
+        report[f"quotient_goldilocks_{tag}"] = hold(
+            f"phase 14 kernel Q one launch goldilocks m={size} rows={s} "
+            f"cluster={cluster_of(kernels, s, size, 3)}",
+            lambda *v, qp=qp: qmod.quotient(qp, *v), lambda *v, qp=qp: qmod.quotient_plain(qp, *v),
+            (a, b, c), quotient_work(s, size, "goldilocks"), plain_reps=1)
+        report[f"ring_commit_goldilocks_{tag}"] = hold(
+            f"phase 14 kernel R one launch n={size} k=1 rows={s} msg_len={size} "
+            f"cluster={cluster_of(kernels, s, size, 2)}",
+            lambda *v, rp=rp: rmod.ring_commit(rp, *v),
+            lambda *v, rp=rp: rmod.ring_commit_plain(rp, *v), (s_draws, e_draws, msg),
+            ring_work(s, size, 1, size), plain_reps=1)
+        report[f"quotient_goldilocks_{tag}"]["cluster"] = cluster_of(kernels, s, size, 3)
+        report[f"ring_commit_goldilocks_{tag}"]["cluster"] = cluster_of(kernels, s, size, 2)
+    for key_ in ("quotient_long", "quotient_pointwise", "ring_commit_long", "ring_twist",
+                 "ring_accumulate", "ring_finish"):
+        report[key_]["cluster"] = None  # the long routes: kernel T and elementwise entries
 
 
 def kind7_long_phase(np, torch, lst, rng):
@@ -743,6 +836,9 @@ def kind7_long_phase(np, torch, lst, rng):
     shapes = dict(kernels.LAUNCHES)
     if min(launches[e] for e in KIND7_LONG_ENTRIES) < 1:
         raise RuntimeError(f"kind 7 at m={m}: a kernel of the path was not launched: {launches}")
+    if any(launches[e] != n for e, n in KIND7_LONG_COUNTS.items()):
+        raise RuntimeError(f"kind 7 at m={m}: launches {nonzero(launches)}, expected "
+                           f"{KIND7_LONG_COUNTS}")
     if (any(launches[e] for e in KECCAK_PER_LEVEL)
             or sum(launches[e] for e in FOREST_ENTRIES) != KIND7_LONG_FORESTS):
         raise RuntimeError(f"kind 7 at m={m}: not one forest launch per Merkle forest: "
@@ -950,12 +1046,12 @@ def main() -> int:
           f"under {os.path.relpath(kernels.build_dir())}")
     for name in paths:
         with open(os.path.join(kernels.build_dir(), f"lib{name}.log")) as f:
-            for line in f:
-                if "registers" in line or "spill" in line:
-                    print(f"  {name}: {line.strip()}", flush=True)
-    for name in ("ntt", "keccak"):
+            for fn, regs, spills in ptxas_resources(f.read()):
+                print(f"  {name} {fn}: {regs}; {spills}", flush=True)
+    for name in ("ntt", "keccak", "quotient", "ring_commit"):
         for fn, mix in sass_mix(paths[name]).items():
-            if "dft_pass" in fn or "forest_kernelILi1E" in fn or "forest_kernelILi4E" in fn:
+            if any(k in fn for k in ("dft_pass", "forest_kernelILi1E", "forest_kernelILi4E",
+                                     "quotient_kernel", "ring_commit_kernel")):
                 print(f"  {name} SASS {fn}: {mix}", flush=True)
 
     rng = np.random.default_rng(SEED)
@@ -994,10 +1090,12 @@ def main() -> int:
         valid = quotient(plan, a, b, c)[4]
         if valid.sum().item() != BATCH - 1 or valid[3].item():
             raise RuntimeError("kernel Q validity flags wrong")
-        report[key_] = hold(f"phase 3 kernel Q {field_name} m={m} B={BATCH}",
+        cluster = cluster_of(kernels, BATCH, m, 3)
+        report[key_] = hold(f"phase 3 kernel Q {field_name} m={m} B={BATCH} cluster={cluster}",
                             lambda *x, plan=plan: quotient(plan, *x),
                             lambda *x, plan=plan: quotient_plain(plan, *x),
                             (a, b, c), quotient_work(BATCH, m, field_name))
+        report[key_]["cluster"] = cluster
 
     # --- phase 4: kernel R against its plain twin, at both message lengths --
     q = NTT_FRIENDLY_MODULUS
@@ -1014,10 +1112,13 @@ def main() -> int:
     # the plain prover commits to Q (m words), the ZK prover to Q' (m + 1)
     for key_, msg_len in (("ring_commit", M_PLAIN), ("ring_commit_zk", M_ZK + 1)):
         msg = modarith.to_words(rng.integers(0, q, size=(BATCH, msg_len), dtype=np.uint64), dev)
+        cluster = cluster_of(kernels, BATCH, RING_N, 2)
         report[key_] = hold(
-            f"phase 4 kernel R n={RING_N} k={RING_K} B={BATCH} msg_len={msg_len}",
+            f"phase 4 kernel R n={RING_N} k={RING_K} B={BATCH} msg_len={msg_len} "
+            f"cluster={cluster}",
             lambda *x: ring_commit(ring, *x), lambda *x: ring_commit_plain(ring, *x),
             (s, e, msg), ring_work(BATCH, RING_N, RING_K, msg_len))
+        report[key_]["cluster"] = cluster
 
     # --- phases 5 and 6: the batched prover ---------------------------------
     def witnesses(m: int) -> np.ndarray:
@@ -1185,6 +1286,15 @@ def main() -> int:
              k7_long["ring_accumulate"]),
             ("ring_finish_kind7_2pow14", "ring_finish", "ring_commit.cu", ring_src,
              k7_long["ring_finish"]),
+            ("quotient_goldilocks_kind7_2pow14", "quotient_goldilocks_kind7_2pow14",
+             "quotient.cu", "lambda_snark_tpu/ops/quotient_pallas.py:143",
+             k7_long["quotient_goldilocks"]),
+            ("ring_commit_goldilocks_kind7_2pow14", "ring_commit_goldilocks_kind7_2pow14",
+             "ring_commit.cu", ring_src, k7_long["ring_commit_goldilocks"]),
+            ("quotient_goldilocks_2pow16", "quotient_goldilocks_2pow16", "quotient.cu",
+             "lambda_snark_tpu/ops/quotient_pallas.py:143", 0),
+            ("ring_commit_goldilocks_2pow16", "ring_commit_goldilocks_2pow16", "ring_commit.cu",
+             ring_src, 0),
             ("quotient_q45_stream", "quotient_q45", "quotient.cu", quotient_src,
              st["stream"]["quotient_q45"]),
             ("ring_commit_goldilocks_stream", "ring_commit", "ring_commit.cu", ring_src,

@@ -1,5 +1,5 @@
-// Modular arithmetic on native 64-bit words and the shared-memory radix-2
-// NTT stages used by quotient.cu, ring_commit.cu and ntt.cu.
+// Modular arithmetic on native 64-bit words, used by quotient.cu,
+// ring_commit.cu and ntt.cu (butterfly.cuh holds the NTT stages).
 //
 // A residue is one uint64_t. Products go through __umul64hi:
 // - Goldilocks p = 2^64 - 2^32 + 1 reduces a 128-bit product with
@@ -13,12 +13,22 @@
 // A field is a value: Goldilocks and Q45 are empty and their members
 // static, Barrett carries (q, mu, k); kernels take the field as an argument
 // and with_field() picks the type for a modulus at launch.
+//
+// Q45Shoup is the 44-bit field with lazy Shoup/Harvey butterflies (kShoup):
+// a product by a known constant w (a twiddle or a table entry) takes its
+// companion w' = floor(w 2^64 / q) and gives w x - umulhi(x, w') q, which
+// lies in [0, 2q) for any x < 2^64; words stay in [0, 2q) through DIF
+// stages and in [0, 4q) through DIT stages, with one conditional subtract
+// per butterfly, and are reduced (reduce2, reduce4) where they leave a
+// kernel or meet another word in a product (mul, Barrett on canonical
+// inputs). The canonical fields have kShoup = false and ignore w'.
 #pragma once
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 struct Goldilocks {
+  static constexpr bool kShoup = false;
   static constexpr uint64_t P = 0xFFFFFFFF00000001ull;
   static constexpr uint64_t EPS = 0xFFFFFFFFull;  // 2^64 mod p
 
@@ -44,6 +54,7 @@ struct Goldilocks {
 };
 
 struct Q45 {
+  static constexpr bool kShoup = false;
   static constexpr uint64_t P = 17592169062401ull;   // 44 bits
   static constexpr uint64_t MU = 17592203026447ull;  // floor(2^88 / P)
 
@@ -66,7 +77,39 @@ struct Q45 {
   }
 };
 
+struct Q45Shoup : Q45 {
+  static constexpr bool kShoup = true;
+  static constexpr uint64_t P2 = 2 * P;
+
+  // w x mod q in [0, 2q) for any x, w < q and ws = floor(w 2^64 / q)
+  __device__ __forceinline__ static uint64_t mul_tw(uint64_t x, uint64_t w, uint64_t ws) {
+    return x * w - __umul64hi(x, ws) * P;
+  }
+  __device__ __forceinline__ static uint64_t reduce2(uint64_t x) {  // [0, 2q) -> [0, q)
+    return x >= P ? x - P : x;
+  }
+  __device__ __forceinline__ static uint64_t reduce4(uint64_t x) {  // [0, 4q) -> [0, q)
+    return reduce2(x >= P2 ? x - P2 : x);
+  }
+  // Gentleman-Sande: a, b in [0, 2q) -> a + b, (a - b) w, both in [0, 2q)
+  __device__ __forceinline__ static void dif(uint64_t& a, uint64_t& b, uint64_t w,
+                                             uint64_t ws) {
+    const uint64_t s = a + b;
+    b = mul_tw(a - b + P2, w, ws);
+    a = s >= P2 ? s - P2 : s;
+  }
+  // Cooley-Tukey: a, b in [0, 4q) -> a + b w, a - b w, both in [0, 4q)
+  __device__ __forceinline__ static void dit(uint64_t& a, uint64_t& b, uint64_t w,
+                                             uint64_t ws) {
+    const uint64_t u = a >= P2 ? a - P2 : a;
+    const uint64_t t = mul_tw(b, w, ws);
+    a = u + t;
+    b = u - t + P2;
+  }
+};
+
 struct Barrett {
+  static constexpr bool kShoup = false;
   uint64_t P, MU;  // q < 2^47 and floor(2^(2k) / q)
   int K;           // bit length of q
 
@@ -105,44 +148,4 @@ int with_field(uint64_t q, Fn&& fn) {
 // Bit reversal of i < 2^log_n.
 __device__ __forceinline__ int bitrev(int i, int log_n) {
   return (int)(__brev((unsigned)i) >> (32 - log_n));
-}
-
-// Decimation in frequency over x[0, 2^log_n) in shared memory: natural
-// order in, bit-reversed order out, X[rev(i)] = sum_t x_t w^(t i).
-// tw[e] = w^e for e < n/2. The caller synchronises before; this returns
-// synchronised.
-template <class F>
-__device__ void dif(uint64_t* x, const uint64_t* __restrict__ tw, int log_n) {
-  const int half_n = 1 << (log_n - 1);
-  for (int s = log_n - 1; s >= 0; --s) {
-    const int half = 1 << s;
-    const int step = log_n - 1 - s;  // twiddle exponent stride n / (2 half)
-    for (int i = threadIdx.x; i < half_n; i += blockDim.x) {
-      const int j = i & (half - 1);
-      const int i0 = ((i >> s) << (s + 1)) | j;
-      const uint64_t u = x[i0], v = x[i0 + half];
-      x[i0] = F::add(u, v);
-      x[i0 + half] = F::mul(F::sub(u, v), tw[j << step]);
-    }
-    __syncthreads();
-  }
-}
-
-// Decimation in time: bit-reversed order in, natural order out,
-// X_k = sum_t x_t w^(t k) for x_t stored at rev(t).
-template <class F>
-__device__ void dit(uint64_t* x, const uint64_t* __restrict__ tw, int log_n) {
-  const int half_n = 1 << (log_n - 1);
-  for (int s = 0; s < log_n; ++s) {
-    const int half = 1 << s;
-    const int step = log_n - 1 - s;
-    for (int i = threadIdx.x; i < half_n; i += blockDim.x) {
-      const int j = i & (half - 1);
-      const int i0 = ((i >> s) << (s + 1)) | j;
-      const uint64_t u = x[i0], v = F::mul(x[i0 + half], tw[j << step]);
-      x[i0] = F::add(u, v);
-      x[i0 + half] = F::sub(u, v);
-    }
-    __syncthreads();
-  }
 }

@@ -61,7 +61,9 @@
 //   round trips, one a stage), with one __syncthreads per three stages in
 //   between; twiddles are read through the read-only cache;
 // - the shared-memory attribute is set once per process and field type.
-#include "modmath.cuh"
+// The swizzle, the register stages and the radix passes live in
+// butterfly.cuh, shared with kernels Q and R.
+#include "butterfly.cuh"
 
 constexpr int kThreads = 256;
 constexpr int kLogTile = 12;     // words a block takes of shorter sub-transforms
@@ -91,69 +93,6 @@ struct NttPass {
   int log_count[kMaxLevels];
   int levels, log_n, rows, reserved;
 };
-
-__device__ __forceinline__ int swz(int i) {
-  return i ^ (((i >> 4) ^ (i >> 8) ^ (i >> 12)) & 15);
-}
-
-// R DIF stages on the 2^R words e[] of one group, in registers: word k
-// sits at tile position lo + k 2^lo_bits (lo < 2^lo_bits) of its
-// sub-transform; the stages run from lo_bits + R - 1 down to lo_bits.
-template <int R, class F>
-__device__ __forceinline__ void dif_stages(const F& f, uint64_t* e,
-                                           const uint64_t* __restrict__ tw, int lo,
-                                           int lo_bits, int log_n) {
-  constexpr int K = 1 << R;
-#pragma unroll
-  for (int sr = R - 1; sr >= 0; --sr) {  // stage lo_bits + sr
-    const int half = 1 << sr;
-    const int shift = log_n - 1 - lo_bits - sr;
-    uint64_t w[K / 2];
-#pragma unroll
-    for (int kk = 0; kk < half; ++kk)
-      w[kk] = __ldg(reinterpret_cast<const unsigned long long*>(tw) +
-                    ((lo + (kk << lo_bits)) << shift));
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      if (k & half) continue;
-      const uint64_t a = e[k], b = e[k + half];
-      e[k] = f.add(a, b);
-      e[k + half] = f.mul(f.sub(a, b), w[k & (half - 1)]);
-    }
-  }
-}
-
-// Three (R = 3), two or one DIF stages, st down to st - R + 1, on every
-// group of 2^R words of the tile that they couple, shared memory to
-// registers and back.
-template <int R, class F>
-__device__ __forceinline__ void radix_pass(const F& f, uint64_t* s,
-                                           const uint64_t* __restrict__ tw,
-                                           int log_n, int tile_bits, int st) {
-  constexpr int K = 1 << R;
-  const int lo_bits = st - R + 1;  // the group's words lie 2^lo_bits apart
-  const int hi_bits = tile_bits - st - 1;
-  const int groups = 1 << (tile_bits - R);
-  for (int g = threadIdx.x; g < groups; g += kThreads) {
-    // consecutive threads vary 4 consecutive index bits: the low ones when
-    // there are 4 below the group's, else the ones above it
-    int lo, hi;
-    if (lo_bits >= 4 || hi_bits < 4) {
-      lo = g & ((1 << lo_bits) - 1);
-      hi = g >> lo_bits;
-    } else {
-      hi = g & ((1 << hi_bits) - 1);
-      lo = g >> hi_bits;
-    }
-    const int base = lo | (hi << (st + 1));
-    uint64_t e[K];
-#pragma unroll
-    for (int k = 0; k < K; ++k) e[k] = s[swz(base + (k << lo_bits))];
-    dif_stages<R>(f, e, tw, lo, lo_bits, log_n);
-#pragma unroll
-    for (int k = 0; k < K; ++k) s[swz(base + (k << lo_bits))] = e[k];
-  }
-}
 
 // Where a block's sub-transforms and their words lie in its rows.
 struct Tile {
@@ -186,7 +125,7 @@ __device__ __forceinline__ void first_pass(const F& f, const NttPass& p, const T
       e[k] = x[pos];
       if (p.pre != nullptr) e[k] = f.mul(e[k], p.pre[pos & p.tab_mask]);
     }
-    dif_stages<R>(f, e, p.tw, lo, lo_bits, T.log_n);
+    dif_stages<R>(f, e, StridedTwiddles{p.tw, T.log_n}, lo, lo_bits);
 #pragma unroll
     for (int k = 0; k < K; ++k) s[swz((t << T.log_n) | (lo + (k << lo_bits)))] = e[k];
   }
@@ -214,7 +153,7 @@ __device__ __forceinline__ void last_pass(const F& f, const NttPass& p, const Ti
     uint64_t e[8];
 #pragma unroll
     for (int r = 0; r < 8; ++r) e[r] = s[swz(base + r)];
-    dif_stages<3>(f, e, p.tw, 0, 0, T.log_n);
+    dif_stages<3>(f, e, StridedTwiddles{p.tw, T.log_n}, 0, 0);
 #pragma unroll
     for (int r = 0; r < 8; ++r) {
       const int k = kb + (((r & 1) << 2 | (r & 2) | (r >> 2)) << kb_bits);
@@ -273,7 +212,7 @@ __global__ void __launch_bounds__(kThreads) dft_pass(F f, NttPass p, int log_per
     else first_pass<3>(f, p, T, x, s);
     __syncthreads();
     for (int st = log_n - 1 - r0; st > 2; st -= 3) {
-      radix_pass<3>(f, s, p.tw, log_n, tile_bits, st);
+      radix_pass<3, kThreads>(f, s, p.tw, log_n, tile_bits, st);
       __syncthreads();
     }
     last_pass(f, p, T, s, y);
@@ -296,9 +235,9 @@ __global__ void __launch_bounds__(kThreads) dft_pass(F f, NttPass p, int log_per
     s[swz((t << log_n) | i)] = v;
   }
   __syncthreads();
-  if (log_n == 3) radix_pass<3>(f, s, p.tw, log_n, tile_bits, 2);
-  else if (log_n == 2) radix_pass<2>(f, s, p.tw, log_n, tile_bits, 1);
-  else radix_pass<1>(f, s, p.tw, log_n, tile_bits, 0);
+  if (log_n == 3) radix_pass<3, kThreads>(f, s, p.tw, log_n, tile_bits, 2);
+  else if (log_n == 2) radix_pass<2, kThreads>(f, s, p.tw, log_n, tile_bits, 1);
+  else radix_pass<1, kThreads>(f, s, p.tw, log_n, tile_bits, 0);
   __syncthreads();
   for (int idx = threadIdx.x; idx < total; idx += kThreads) {
     int t, k;

@@ -1,7 +1,8 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
 Each source in ``csrc/`` (``quotient.cu`` kernel Q, ``ring_commit.cu``
-kernel R, ``keccak.cu`` kernel K, ``ntt.cu`` kernels N and T) is compiled by
+kernel R, ``keccak.cu`` kernel K, ``ntt.cu`` kernels N and T; the headers
+``modmath.cuh``, ``butterfly.cuh`` and ``cluster.cuh`` they share) is compiled by
 ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface and
 loaded with ``ctypes``; nothing includes PyTorch's headers. Libraries go to
 ``build/torch_kernels/<digest>/`` beside the package, keyed by a digest of
@@ -17,6 +18,9 @@ pass for ``ntt_four_step``: two up to 2^26 points, three at 2^27; one for
 every other entry, a whole Merkle forest for ``keccak_forest`` and
 ``keccak_group_forest``), and nowhere else. ``launches()`` sums them per
 C entry.
+
+``cluster_size`` picks how many blocks of a thread-block cluster kernels Q
+and R spread one row over.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ import hashlib
 import os
 import shutil
 import subprocess
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, Optional, Tuple
 
 PACKAGE_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
@@ -46,7 +50,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U64 = ctypes.c_uint64
 _I64 = ctypes.c_longlong
-_QUOTIENT_ARGS = [_P] * 7 + [_U64] + [_P] * 5 + [_I, _I, _P]
+# a, b, c, four tables and their Shoup companions, 1/m and its companion,
+# five outputs, rows, log2 m, the cluster size, the stream
+_QUOTIENT_ARGS = [_P] * 11 + [_U64, _U64] + [_P] * 5 + [_I, _I, _I, _P]
 PROTOTYPES = {
     "quotient": {
         "quotient_q45": _QUOTIENT_ARGS,
@@ -54,7 +60,7 @@ PROTOTYPES = {
         "quotient_pointwise": [_P] * 8 + [_U64, _I, _I, _P],
     },
     "ring_commit": {
-        "ring_commit_goldilocks": [_P, _P, _P, _I] + [_P] * 6 + [_I, _I, _I, _P],
+        "ring_commit_goldilocks": [_P, _P, _P, _I] + [_P] * 6 + [_I, _I, _I, _I, _P],
         "ring_twist": [_P, _P, _P, _I64, _I, _P],
         "ring_accumulate": [_P, _P, _P, _I64, _I, _I, _P],
         "ring_finish": [_P, _P, _P, _I, _P, _I64, _I, _P],
@@ -73,6 +79,29 @@ PROTOTYPES = {
 }
 
 LAUNCHES: Dict[Tuple[str, Tuple[int, ...], str], int] = {}
+
+SM_COUNT = 132  # streaming multiprocessors of an H100 SXM
+MAX_CLUSTER = 8  # the largest portable thread-block cluster
+CLUSTER_BLOCK_BYTES = 192 << 10  # a block's share of a row: 3 x 2^13 words (csrc/cluster.cuh)
+
+
+def cluster_size(rows: int, m: int, words: int) -> Optional[int]:
+    """Blocks per row of kernels Q and R, for ``rows`` rows of m points
+    whose buffers hold ``words`` 64-bit words a row (kernel Q: three of m,
+    kernel R: two of n): the smallest power of two C <= 8 whose rows x C
+    blocks fill the card's SMs, at least as many as keep a block's share of
+    the words within CLUSTER_BLOCK_BYTES and at most C^2 <= m (a block takes
+    at least one group of the cross-block exchange). None where no C <= 8
+    holds the row: such a row takes the long route."""
+    c = 1
+    while words * 8 > CLUSTER_BLOCK_BYTES * c:
+        c *= 2
+    if c > MAX_CLUSTER or c * c > m:
+        return None
+    while rows * c < SM_COUNT and 2 * c <= MAX_CLUSTER and 4 * c * c <= m:
+        c *= 2
+    return c
+
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

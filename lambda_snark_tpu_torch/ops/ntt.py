@@ -34,6 +34,17 @@ def bitrev(m: int) -> torch.Tensor:
     return rev
 
 
+def stage_index(n: int) -> torch.Tensor:
+    """Where the twiddles of an n-point transform's radix-2 stages sit in a
+    table of omega^e (e < n/2): entry 2^s + j of the stage-major order
+    (kernels Q and R read it, ``csrc/butterfly.cuh``) is stage s's twiddle
+    at j, omega^(j n / 2^(s+1)), at index j << (log2 n - 1 - s); entry 0 is
+    unused and points at omega^0."""
+    log_n = n.bit_length() - 1
+    idx = [0] + [j << (log_n - 1 - s) for s in range(log_n) for j in range(1 << s)]
+    return torch.tensor(idx, dtype=torch.int64)
+
+
 def powers(base: int, count: int, q: int, scale: int = 1) -> list:
     """[scale * base^i mod q for i < count] as Python ints."""
     out = []

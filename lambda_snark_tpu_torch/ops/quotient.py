@@ -11,16 +11,26 @@ Kernel Q replaces the TPU kernels ``quotient_batch_fused``
 (ops/quotient_pallas.py:143) and ``quotient_batch_mxu``
 (ops/ntt_mxu_q45.py:466) for the 44-bit field and the Goldilocks field.
 ``quotient`` launches it for CUDA tensors and runs ``quotient_plain`` for
-CPU tensors. Kernel Q keeps a row in shared memory (m <= 2^13); a longer row
+CPU tensors. Kernel Q keeps a row in the shared memory of a cluster of
+``kernels.cluster_size`` blocks, up to m = 2^16 in one launch; a longer row
 (Goldilocks, whose 2-adicity is 32; the 44-bit field stops at m = 2^12)
 takes the long route on the card: kernel T's four-step for the three
 transforms, with the twist folded into a load and the untwist into a store,
 around kernel Q's elementwise entry ``quotient_pointwise``.
+
+The plan's tables are what the kernel reads: the twiddles of omega and
+omega^-1 in stage-major order (``ops.ntt.stage_index``: consecutive
+threads read consecutive words), the twist psi^k / m stored at the DIF
+position that holds coefficient k (``twist_rev``, as the JAX kernel's),
+the untwist in natural order, and for the 44-bit field, whose
+kernel multiplies by known constants with Shoup's lazy product, each table's
+companion floor(w 2^64 / q) (``shoup``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import List, Optional
 
 import torch
 
@@ -29,14 +39,30 @@ from ..core import field
 from . import modarith
 from .ntt import (
     NttPlan,
+    bitrev,
     ntt_forward_negacyclic,
     ntt_inverse,
     ntt_inverse_negacyclic,
     powers,
+    stage_index,
 )
 from .ntt_large import check_rows, ntt_forward_large, ntt_inverse_large
 
-_MAX_LOG_M = 13  # two rows of 2^13 words fill 128 KiB of shared memory
+
+def shoup(values: List[int], q: int) -> List[int]:
+    """Shoup companions floor(w 2^64 / q) of canonical values w < q."""
+    return [(w << 64) // q for w in values]
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ShoupTables:
+    """The companions floor(w 2^64 / q) of a quotient plan's tables."""
+
+    tw_stage: torch.Tensor  # (m,)
+    tw_inv_stage: torch.Tensor  # (m,)
+    twist_rev: torch.Tensor  # (m,)
+    untwist: torch.Tensor  # (m,)
+    inv_m: int
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -46,9 +72,12 @@ class QuotientPlan:
     m: int
     q: int
     ntt: NttPlan  # holds omega^e, omega^-e, 1/m
-    twist: torch.Tensor  # (m,) psi^k / m
+    tw_stage: torch.Tensor  # (m,) omega's twiddles in stage-major order (ops.ntt.stage_index)
+    tw_inv_stage: torch.Tensor  # (m,) omega^-1's
+    twist_rev: torch.Tensor  # (m,) psi^rev(i) / m at DIF position i
     untwist: torch.Tensor  # (m,) psi^-k / (m (-2))
     neg_half_inv: int
+    shoup: Optional[ShoupTables]  # the 44-bit field's companions, else None
 
     @staticmethod
     def create(m: int, q: int, psi: int, device="cpu") -> "QuotientPlan":
@@ -57,11 +86,27 @@ class QuotientPlan:
         neg_half_inv = field.mod_inverse(q - 2, q)
         untwist_scale = field.mul_mod(ntt.inv_m, neg_half_inv, q)
         psi_inv = field.mod_inverse(psi, q)
+        twist = powers(psi, m, q, scale=ntt.inv_m)
+        twist_rev = [twist[i] for i in bitrev(m).tolist()]
+        untwist = powers(psi_inv, m, q, scale=untwist_scale)
+        stages = stage_index(m).to(device)
+        companions = None
+        if q == modarith.Q45:
+            words = lambda vals: modarith.to_words(shoup(vals, q), device)
+            companions = ShoupTables(
+                tw_stage=words(powers(omega, m // 2, q)).index_select(0, stages),
+                tw_inv_stage=words(powers(field.mod_inverse(omega, q), m // 2, q)
+                                   ).index_select(0, stages),
+                twist_rev=words(twist_rev), untwist=words(untwist),
+                inv_m=shoup([ntt.inv_m], q)[0],
+            )
         return QuotientPlan(
             m=m, q=q, ntt=ntt,
-            twist=modarith.to_words(powers(psi, m, q, scale=ntt.inv_m), device),
-            untwist=modarith.to_words(powers(psi_inv, m, q, scale=untwist_scale), device),
-            neg_half_inv=neg_half_inv,
+            tw_stage=ntt.tw.index_select(0, stages),
+            tw_inv_stage=ntt.tw_inv.index_select(0, stages),
+            twist_rev=modarith.to_words(twist_rev, device),
+            untwist=modarith.to_words(untwist, device),
+            neg_half_inv=neg_half_inv, shoup=companions,
         )
 
 
@@ -80,7 +125,7 @@ def _check_inputs(plan: QuotientPlan, a, b, c) -> None:
     for x in (a, b, c):
         if x.dtype != torch.int64 or x.dim() != 2 or x.shape[1] != plan.m:
             raise ValueError(f"expected (B, {plan.m}) int64 words, got {x.dtype} {tuple(x.shape)}")
-        if x.shape != a.shape or x.device != plan.twist.device:
+        if x.shape != a.shape or x.device != plan.untwist.device:
             raise ValueError("a, b, c must share one shape and the plan's device")
         if not x.is_contiguous():
             raise ValueError("inputs must be contiguous")
@@ -93,8 +138,9 @@ def quotient(plan: QuotientPlan, a, b, c):
         return quotient_plain(plan, a, b, c)
     if a.device.type != "cuda":
         raise ValueError(f"unsupported device {a.device}")
-    log_m = plan.m.bit_length() - 1
-    if log_m > _MAX_LOG_M:
+    rows, log_m = a.shape[0], plan.m.bit_length() - 1
+    cluster = kernels.cluster_size(rows, plan.m, 3 * plan.m)
+    if cluster is None:
         return quotient_long(plan, a, b, c)
     if plan.q == modarith.Q45:
         entry = "quotient_q45"
@@ -102,20 +148,22 @@ def quotient(plan: QuotientPlan, a, b, c):
         entry = "quotient_goldilocks"
     else:
         raise ValueError(f"kernel Q has no reduction for q = {plan.q}")
-    fn = getattr(kernels.load("quotient"), entry)
-    rows = a.shape[0]
     outs = [torch.empty_like(a) for _ in range(4)]
     valid = torch.empty(rows, dtype=torch.int32, device=a.device)
     if rows == 0:
         return (*outs, valid.bool())
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(),
-                plan.ntt.tw_inv.data_ptr(), plan.ntt.tw.data_ptr(),
-                plan.twist.data_ptr(), plan.untwist.data_ptr(), plan.ntt.inv_m,
-                *(o.data_ptr() for o in outs), valid.data_ptr(), rows, log_m, stream)
-    kernels.check(rc, "kernel Q (quotient)")
-    kernels.count(entry, 1, a.shape)
+    sh = plan.shoup
+    companion = lambda name: None if sh is None else getattr(sh, name).data_ptr()
+    tables = (plan.tw_inv_stage.data_ptr(), companion("tw_inv_stage"),
+              plan.tw_stage.data_ptr(), companion("tw_stage"),
+              plan.twist_rev.data_ptr(), companion("twist_rev"),
+              plan.untwist.data_ptr(), companion("untwist"),
+              plan.ntt.inv_m, 0 if sh is None else sh.inv_m)
+    fn = getattr(kernels.load("quotient"), entry)
+    rc = kernels.launch(a.device, fn, a.data_ptr(), b.data_ptr(), c.data_ptr(), *tables,
+                        *(o.data_ptr() for o in outs), valid.data_ptr(), rows, log_m, cluster)
+    kernels.check(rc, f"kernel Q (quotient, clusters of {cluster} blocks)")
+    kernels.count(entry, 1, a.shape, f"cluster {cluster}")
     return (*outs, valid.bool())
 
 
@@ -154,7 +202,7 @@ def quotient_pointwise(q: int, a_odd, b_odd, c_odd, a, b, c):
 
 
 def quotient_long(plan: QuotientPlan, a, b, c):
-    """The long route (m > 2^13): interpolate a, b, c (inverse four-step),
+    """The long route (m > 2^16): interpolate a, b, c (inverse four-step),
     move them onto the odd coset (forward four-step, psi^t in its load),
     N = a_odd b_odd - c_odd and the residual flags (``quotient_pointwise``),
     Q = iNTT(N) psi^-k / (-2) (the untwist in the last store). The card runs

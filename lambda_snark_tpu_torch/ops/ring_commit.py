@@ -8,8 +8,9 @@ randomness s (k, B, n) and e (B, n) int32, and messages msg (B, L) int64
 words with L <= n (zero beyond L). Kernel R replaces the TPU kernels
 ``commit_batch_mxu`` (ops/ring_mxu.py:229) and ``fused_commit``
 (ops/ring_pallas.py:230). ``ring_commit`` launches it for CUDA tensors and
-runs ``ring_commit_plain`` for CPU tensors. Kernel R keeps a row in shared
-memory (n <= 2^13); a larger ring takes the long route on the card
+runs ``ring_commit_plain`` for CPU tensors. Kernel R keeps a row in the
+shared memory of a cluster of ``kernels.cluster_size`` blocks, up to
+n = 2^16 in one launch; a larger ring takes the long route on the card
 (``ring_commit_long``): kernel R's elementwise entries ``ring_twist``,
 ``ring_accumulate`` and ``ring_finish`` around kernel T's four-step, with
 the untwist psi^-t / n folded into the inverse's store.
@@ -24,11 +25,10 @@ import torch
 
 from .. import kernels
 from . import modarith
-from .ntt import NttPlan, bitrev, ntt_forward_negacyclic, ntt_inverse_negacyclic
+from .ntt import NttPlan, bitrev, ntt_forward_negacyclic, ntt_inverse_negacyclic, stage_index
 from .ntt_large import ntt_forward_large, ntt_inverse_large
 
 P = modarith.GOLDILOCKS
-_MAX_LOG_N = 13  # two rows of 2^13 words fill 128 KiB of shared memory
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -38,14 +38,20 @@ class RingCommitPlan:
     ntt: NttPlan  # Goldilocks negacyclic plan of degree n
     a_hat: torch.Tensor  # (k, n) A_hat words, natural NTT order
     a_hat_rev: torch.Tensor  # (k, n) the same, bit-reversed
+    tw_stage: torch.Tensor  # (n,) the ring NTT's twiddles in stage-major order (kernel R)
+    tw_inv_stage: torch.Tensor  # (n,) the inverse's
 
     @staticmethod
     def create(a_hat: np.ndarray, ntt: NttPlan) -> "RingCommitPlan":
         k, n = a_hat.shape
-        words = modarith.to_words(a_hat, ntt.tw.device)
+        dev = ntt.tw.device
+        words = modarith.to_words(a_hat, dev)
+        stages = stage_index(n).to(dev)
         return RingCommitPlan(
             n=n, k=k, ntt=ntt, a_hat=words,
-            a_hat_rev=words.index_select(1, bitrev(n).to(words.device)).contiguous(),
+            a_hat_rev=words.index_select(1, bitrev(n).to(dev)).contiguous(),
+            tw_stage=ntt.tw.index_select(0, stages),
+            tw_inv_stage=ntt.tw_inv.index_select(0, stages),
         )
 
 
@@ -98,22 +104,20 @@ def ring_commit(plan: RingCommitPlan, s, e, msg):
         return ring_commit_plain(plan, s, e, msg)
     if s.device.type != "cuda":
         raise ValueError(f"unsupported device {s.device}")
-    if plan.n > 1 << _MAX_LOG_N:
+    rows, log_n = e.shape[0], plan.n.bit_length() - 1
+    cluster = kernels.cluster_size(rows, plan.n, 2 * plan.n)
+    if cluster is None:
         return ring_commit_long(plan, s, e, msg)
-    log_n = plan.n.bit_length() - 1
-    rows = e.shape[0]
     out = torch.empty((rows, plan.n), dtype=torch.int64, device=s.device)
     if rows == 0:
         return out
     fn = kernels.load("ring_commit").ring_commit_goldilocks
-    with torch.cuda.device(s.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(s.data_ptr(), e.data_ptr(), msg.data_ptr(), msg.shape[1],
-                plan.a_hat_rev.data_ptr(), plan.ntt.psi_pows.data_ptr(),
-                plan.ntt.psi_inv_n.data_ptr(), plan.ntt.tw.data_ptr(),
-                plan.ntt.tw_inv.data_ptr(), out.data_ptr(), rows, plan.k, log_n, stream)
-    kernels.check(rc, "kernel R (ring commit)")
-    kernels.count("ring_commit_goldilocks", 1, e.shape)
+    rc = kernels.launch(s.device, fn, s.data_ptr(), e.data_ptr(), msg.data_ptr(), msg.shape[1],
+                        plan.a_hat_rev.data_ptr(), plan.ntt.psi_pows.data_ptr(),
+                        plan.ntt.psi_inv_n.data_ptr(), plan.tw_stage.data_ptr(),
+                        plan.tw_inv_stage.data_ptr(), out.data_ptr(), rows, plan.k, log_n, cluster)
+    kernels.check(rc, f"kernel R (ring commit, clusters of {cluster} blocks)")
+    kernels.count("ring_commit_goldilocks", 1, e.shape, f"cluster {cluster}")
     return out
 
 
@@ -178,7 +182,7 @@ def ring_finish(plan: RingCommitPlan, x, e, msg) -> torch.Tensor:
 
 
 def ring_commit_long(plan: RingCommitPlan, s, e, msg) -> torch.Tensor:
-    """The long route (n > 2^13): twist, forward four-step of the k B rows,
+    """The long route (n > 2^16): twist, forward four-step of the k B rows,
     the A_hat accumulation, the inverse four-step with psi^-t / n in its
     store, + e + msg. The card runs it from ``ring_commit``; on CPU tensors
     every step is its plain twin."""

@@ -9,8 +9,16 @@ with ``nvcc`` at first use) and prints one JSON line with:
 - ``ntt``: kernel T (entries ``ntt_rows`` and ``ntt_four_step``, through
   ``ntt_forward_batched`` / ``ntt_inverse_batched``) at the shapes of the
   port's paths, ms per call, mean of 20 after a warm-up (CUDA events);
-- ``long_routes``: kernels Q and R past one tile (m = n = 2^14, 16 rows),
-  built on kernel T's four-step, ms per call as above;
+- ``q_and_r``: kernels Q and R through ``quotient`` / ``ring_commit`` at
+  the port's path shapes (kinds 2/3: 256 x 4096 and 256 x 2048 over the
+  44-bit field, the ring at n = 4096, k = 2 with both message lengths;
+  kind 7: 16 rows of 2^13 and 2^14 Goldilocks words, and 16 x 2^16),
+  whatever route the checkout takes, ms per call as above;
+- ``clusters``: where the checkout spreads rows over thread-block clusters
+  (``kernels.cluster_size``), the same shapes with the cluster forced to
+  each size the kernels take, ms per call;
+- ``long_routes``: ``quotient_long`` and ``ring_commit_long`` (kernel T's
+  four-step around the elementwise entries) at m = n = 2^14, 16 rows;
 - ``forests``: each Merkle forest shape of the kind-7 paths at m = 2^13 and
   2^14 through ``fri_device.commit_planes_dev`` / ``commit_planes_dev_groups``
   (whatever route the checkout takes), ms per call as above, and the host
@@ -40,6 +48,14 @@ SHAPES_T = (  # (modulus name, rows, points)
     ("goldilocks", 16, 1 << 14), ("goldilocks", 48, 1 << 14), ("barrett", 16, 1 << 14),
     ("goldilocks", 64, 1 << 16), ("goldilocks", 16, 1 << 17), ("goldilocks", 64, 1 << 17),
     ("goldilocks", 1, 1 << 20), ("goldilocks", 1, 1 << 21),
+)
+Q_SHAPES = (  # (modulus name, rows, m)
+    ("q45", 256, 4096), ("q45", 256, 2048), ("goldilocks", 16, 1 << 13),
+    ("goldilocks", 16, 1 << 14), ("goldilocks", 16, 1 << 16),
+)
+R_SHAPES = (  # (rows, n, k, message words)
+    (256, 4096, 2, 4096), (256, 4096, 2, 2049), (16, 1 << 13, 1, 1 << 13),
+    (16, 1 << 14, 1, 1 << 14), (16, 1 << 16, 1, 1 << 16),
 )
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORESTS = [(16, 4, 1 << 16), (16, 4, 1 << 17)] + [(16, 1, 1 << k) for k in range(10, 17)]
@@ -108,9 +124,13 @@ def main() -> int:
     def words(shape, q):
         return modarith.to_words(rng.integers(0, q, size=shape, dtype=np.uint64), dev)
 
+    import subprocess
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
     record = dict(label=args.label, root=os.path.abspath(args.root),
-                  device=torch.cuda.get_device_name(0), ntt={}, long_routes={}, forests={},
-                  kind7={})
+                  device=torch.cuda.get_device_name(0), nvidia_smi=smi, ntt={}, q_and_r={},
+                  clusters={}, long_routes={}, forests={}, kind7={})
 
     for name, rows, size in SHAPES_T:
         q = moduli[name]
@@ -120,12 +140,44 @@ def main() -> int:
             record["ntt"][f"{name} {rows}x{size} {direction}"] = cuda_ms(
                 torch, lambda fn=fn: fn(plan, x))
 
+    from lambda_snark_tpu_torch import kernels
+
+    shaped = {}  # label -> (kernel call, rows, m, ring words per row or None)
+    for name, rows, m in Q_SHAPES:
+        q = moduli[name]
+        qplan = qmod.QuotientPlan.create(m, q, field_psi_for(m, q), device=dev)
+        a, b = words((rows, m), q), words((rows, m), q)
+        c = modarith.mul_mod(a, b, q)
+        shaped[f"Q {name} {rows}x{m}"] = (lambda p=qplan, a=a, b=b, c=c: qmod.quotient(p, a, b, c),
+                                          rows, m)
+    for rows, n, k, msg_len in R_SHAPES:
+        ring = rmod.RingCommitPlan.create(rng.integers(0, gl, size=(k, n), dtype=np.uint64),
+                                          goldilocks_ring_plan(n, dev))
+        s_draws = torch.from_numpy(rng.integers(-39, 40, size=(k, rows, n), dtype=np.int32)).to(dev)
+        e_draws = torch.from_numpy(rng.integers(-39, 40, size=(rows, n), dtype=np.int32)).to(dev)
+        msg = words((rows, msg_len), gl)
+        shaped[f"R {rows}x{n} k={k} msg={msg_len}"] = (
+            lambda r=ring, s_=s_draws, e_=e_draws, mm=msg: rmod.ring_commit(r, s_, e_, mm), rows, n)
+    for label, (fn, _, _) in shaped.items():
+        record["q_and_r"][label] = cuda_ms(torch, fn)
+    rule = getattr(kernels, "cluster_size", None)
+    if rule is not None:
+        try:
+            for label, (fn, rows, m) in shaped.items():
+                for cluster in (1, 2, 4, 8):
+                    if m > cluster * (1 << 13) or cluster * cluster > m:
+                        continue
+                    kernels.cluster_size = lambda *_, cluster=cluster: cluster
+                    record["clusters"][f"{label} C={cluster}"] = cuda_ms(torch, fn)
+        finally:
+            kernels.cluster_size = rule
+
     m, s = 1 << 14, 16
     qplan = qmod.QuotientPlan.create(m, gl, field_psi_for(m, gl), device=dev)
     a, b = words((s, m), gl), words((s, m), gl)
     c = modarith.mul_mod(a, b, gl)
     record["long_routes"]["quotient 16x2^14"] = cuda_ms(
-        torch, lambda: qmod.quotient(qplan, a, b, c))
+        torch, lambda: qmod.quotient_long(qplan, a, b, c))
     ctx = lst.LweContext(lst.Params(lst.SecurityLevel.BITS128,
                                     lst.Profile.ring_b(n=m, k=1, q=gl, sigma=3.19)),
                          context_seed=0)
@@ -134,7 +186,7 @@ def main() -> int:
     e_draws = torch.from_numpy(rng.integers(-39, 40, size=(s, m), dtype=np.int32)).to(dev)
     msg = words((s, m), gl)
     record["long_routes"]["ring_commit 16x2^14"] = cuda_ms(
-        torch, lambda: rmod.ring_commit(ring, s_draws, e_draws, msg))
+        torch, lambda: rmod.ring_commit_long(ring, s_draws, e_draws, msg))
 
     for trees, groups, n in FORESTS:
         vals = words((trees, groups, n), gl)

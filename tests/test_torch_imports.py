@@ -296,9 +296,9 @@ def test_kernel_t_matches_plain_on_card(q):
 
 @pytest.mark.cuda
 def test_long_routes_match_plain_on_card():
-    """Kernels Q and R past one tile (m = n = 2^14, Goldilocks): the long
-    routes through kernel T's four-step against the plain twins, and the
-    four-step with folded pre/post tables."""
+    """The long routes of kernels Q and R (kernel T's four-step around the
+    elementwise entries), called directly at m = n = 2^14, against the plain
+    twins, and the four-step with folded pre/post tables."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from lambda_snark_tpu_torch.commit.lwe import goldilocks_ring_plan
@@ -309,8 +309,8 @@ def test_long_routes_match_plain_on_card():
         ntt_inverse_large,
         ntt_inverse_large_plain,
     )
-    from lambda_snark_tpu_torch.ops.quotient import quotient_plain
-    from lambda_snark_tpu_torch.ops.ring_commit import ring_commit_plain
+    from lambda_snark_tpu_torch.ops.quotient import quotient_long, quotient_plain
+    from lambda_snark_tpu_torch.ops.ring_commit import ring_commit_long, ring_commit_plain
     from lambda_snark_tpu_torch.proof.fri import root_of_order
 
     rng = np.random.default_rng(8)
@@ -321,7 +321,7 @@ def test_long_routes_match_plain_on_card():
     a, b = words((3, m)), words((3, m))
     c = modarith.mul_mod(a, b, gl)
     c[1, 5] = 0
-    got, want = quotient(plan, a, b, c), quotient_plain(plan, a, b, c)
+    got, want = quotient_long(plan, a, b, c), quotient_plain(plan, a, b, c)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert got[4].tolist() == [True, False, True]
     ring = RingCommitPlan.create(rng.integers(0, gl, size=(2, m), dtype=np.uint64),
@@ -329,13 +329,93 @@ def test_long_routes_match_plain_on_card():
     s = torch.from_numpy(rng.integers(-9, 10, size=(2, 3, m), dtype=np.int32)).to(dev)
     e = torch.from_numpy(rng.integers(-9, 10, size=(3, m), dtype=np.int32)).to(dev)
     msg = words((3, m - 1))
-    assert torch.equal(ring_commit(ring, s, e, msg), ring_commit_plain(ring, s, e, msg))
+    assert torch.equal(ring_commit_long(ring, s, e, msg), ring_commit_plain(ring, s, e, msg))
     large = NttLargePlan.create(1 << 15, root_of_order(gl, 1 << 15), dev)
     x, pre, post = words((2, 1 << 15)), words((1 << 15,)), words((1 << 15,))
     assert torch.equal(ntt_inverse_large(large, x, pre=pre, post=post),
                        ntt_inverse_large_plain(large, x, pre=pre, post=post))
     assert torch.equal(ntt_forward_large(large, x, pre=pre, post=post),
                        ntt_forward_large_plain(large, x, pre=pre, post=post))
+
+
+def _hold_q_and_r(rng, dev, q, m, rows, k=2):
+    """Kernels Q and R (R over Goldilocks) at one shape against their twins."""
+    from lambda_snark_tpu_torch.commit.lwe import goldilocks_ring_plan
+    from lambda_snark_tpu_torch.ops.quotient import quotient_plain
+    from lambda_snark_tpu_torch.ops.ring_commit import ring_commit_plain
+
+    gl = port.NTT_MODULUS
+    words = lambda shape, mod: modarith.to_words(
+        rng.integers(0, mod, size=shape, dtype=np.uint64), dev)
+    plan = QuotientPlan.create(m, q, field_psi_for(m, q), device=dev)
+    a, b = words((rows, m), q), words((rows, m), q)
+    c = modarith.mul_mod(a, b, q)
+    c[rows - 1:, m // 3:m // 3 + 1] = modarith.add_mod(
+        c[rows - 1:, m // 3:m // 3 + 1], torch.ones((1, 1), dtype=torch.int64, device=dev), q)
+    got, want = quotient(plan, a, b, c), quotient_plain(plan, a, b, c)
+    assert all(torch.equal(g, w) for g, w in zip(got, want)), (q, m, rows)
+    assert got[4].tolist() == [True] * (rows - 1) + [False]
+    if q != gl:
+        return
+    ring = RingCommitPlan.create(rng.integers(0, gl, size=(k, m), dtype=np.uint64),
+                                 goldilocks_ring_plan(m, dev))
+    s = torch.from_numpy(rng.integers(-39, 40, size=(k, rows, m), dtype=np.int32)).to(dev)
+    e = torch.from_numpy(rng.integers(-39, 40, size=(rows, m), dtype=np.int32)).to(dev)
+    msg = words((rows, m // 2 + 1), gl)
+    assert torch.equal(ring_commit(ring, s, e, msg), ring_commit_plain(ring, s, e, msg)), m
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+def test_cluster_kernels_match_plain_on_card(monkeypatch, cluster):
+    """Kernels Q and R with each row forced onto a cluster of 1, 2, 4 or 8
+    blocks, against their twins: both fields of Q, R with k = 1 and 2, rows
+    of 2^6 to 2^13 words and, where the cluster holds them, 2^14 and 2^16,
+    each in one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    monkeypatch.setattr(kernels, "cluster_size", lambda rows, m, words: cluster)
+    rng = np.random.default_rng(11)
+    dev = torch.device("cuda")
+    gl = port.NTT_MODULUS
+    shapes = [(Q, 64, 3, 2), (Q, 4096, 5, 2), (gl, 64, 3, 2), (gl, 1 << 13, 4, 1)]
+    if cluster >= 2:
+        shapes.append((gl, 1 << 14, 3, 2))
+    if cluster == 8:
+        shapes.append((gl, 1 << 16, 2, 1))
+    for q, m, rows, k in shapes:
+        kernels.reset_launches()
+        _hold_q_and_r(rng, dev, q, m, rows, k)
+        counts = kernels.launches()
+        assert counts["quotient_pointwise"] == counts["ring_twist"] == 0
+        assert all(v == f"cluster {cluster}" for (e, _, v) in kernels.LAUNCHES
+                   if e in ("quotient_q45", "quotient_goldilocks", "ring_commit_goldilocks"))
+
+
+@pytest.mark.cuda
+def test_cluster_rule_routes_on_card():
+    """The default rule: rows of 2^13, 2^14 and 2^16 words in one launch of
+    kernels Q and R, rows of 2^17 on the long routes; a cluster that does
+    not fit the row raises instead of falling back."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(12)
+    dev = torch.device("cuda")
+    gl = port.NTT_MODULUS
+    for m, rows, one_launch in ((1 << 13, 16, True), (1 << 14, 16, True), (1 << 16, 3, True),
+                                (1 << 17, 2, False)):
+        kernels.reset_launches()
+        _hold_q_and_r(rng, dev, gl, m, rows)
+        counts = kernels.launches()
+        assert counts["quotient_goldilocks"] == counts["ring_commit_goldilocks"] \
+            == (1 if one_launch else 0), m
+        assert counts["quotient_pointwise"] == counts["ring_finish"] == (0 if one_launch else 1)
+    plan = QuotientPlan.create(16, gl, field_psi_for(16, gl), device=dev)
+    x = torch.zeros((2, 16), dtype=torch.int64, device=dev)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(kernels, "cluster_size", lambda rows, m, words: 8)  # 8^2 > 16
+        with pytest.raises(RuntimeError, match="kernel Q"):
+            quotient(plan, x, x, x)
 
 
 @pytest.mark.cuda

@@ -1,14 +1,16 @@
-"""The long routes of kernels Q and R (m = n = 2^14, past one block's
-tile) with every step as its plain twin, on the CPU: the chain of
-four-step transforms with folded twist and untwist tables and the
-elementwise entries' twins gives exactly ``quotient_plain`` and
+"""The long routes of kernels Q and R (rows past a cluster's shared memory,
+m = n > 2^16; run here at 2^14) with every step as its plain twin, on the
+CPU: the chain of four-step transforms with folded twist and untwist tables
+and the elementwise entries' twins gives exactly ``quotient_plain`` and
 ``ring_commit_plain``, which ``tests/test_torch_quotient.py`` and
-``tests/test_torch_ring_commit.py`` hold against the JAX package."""
+``tests/test_torch_ring_commit.py`` hold against the JAX package. Then the
+rule that picks a cluster size for kernels Q and R, or the long route."""
 
 import numpy as np
 import pytest
 import torch
 
+from lambda_snark_tpu_torch import kernels
 from lambda_snark_tpu_torch.commit.lwe import goldilocks_ring_plan
 from lambda_snark_tpu_torch.core.params import NTT_MODULUS
 from lambda_snark_tpu_torch.ops import modarith
@@ -124,3 +126,37 @@ def test_step_wrappers_reject(bad):
     fn, args = _step_case(bad)
     with pytest.raises(ValueError):
         fn(*args)
+
+
+@pytest.mark.parametrize("rows,m,buffers,want", [
+    (256, 4096, 3, 1), (256, 2048, 3, 1), (256, 4096, 2, 1),  # kinds 2/3: Q and R
+    (16, 1 << 13, 3, 8), (16, 1 << 13, 2, 8),  # kind 7 at m = 2^13
+    (16, 1 << 14, 3, 8), (16, 1 << 14, 2, 8),  # kind 7 at m = 2^14
+    (16, 1 << 16, 3, 8), (1, 1 << 16, 2, 8),  # the longest rows in one launch
+    (16, 1 << 17, 3, None), (16, 1 << 17, 2, None), (1, 1 << 20, 2, None),  # long routes
+    (0, 64, 3, 8), (1, 64, 2, 8), (0, 2, 3, 1), (1, 2, 2, 1), (1, 4, 3, 2), (5, 16, 2, 4),
+    (132, 4096, 3, 1), (66, 4096, 3, 2), (132, 1 << 15, 3, 4), (132, 1 << 15, 2, 4),
+])
+def test_cluster_size_rule(rows, m, buffers, want):
+    """Blocks per row of kernels Q (three buffers of m words a row) and R
+    (two) at the path shapes and the edges; None sends a row to the long
+    route."""
+    assert kernels.cluster_size(rows, m, buffers * m) == want
+
+
+@pytest.mark.parametrize("buffers", [2, 3])
+@pytest.mark.parametrize("rows", [0, 1, 3, 16, 33, 131, 256, 4096])
+def test_cluster_size_invariants(rows, buffers):
+    """Wherever a cluster is chosen, it is 1, 2, 4 or 8 blocks, each block
+    holds at most 2^13 words of each buffer and takes at least one exchange
+    group (C^2 <= m), and the grid fills the card's SMs unless C is already
+    as large as the row allows; a row of 2^16 words always fits."""
+    for log_m in range(1, 18):
+        m = 1 << log_m
+        c = kernels.cluster_size(rows, m, buffers * m)
+        if c is None:
+            assert m > 1 << 16
+            continue
+        assert c in (1, 2, 4, 8) and m // c <= 1 << 13 and c * c <= m
+        assert rows * c >= kernels.SM_COUNT or c == 8 or 4 * c * c > m
+        assert c == 1 or rows * c // 2 < kernels.SM_COUNT or m // c * 2 > 1 << 13

@@ -1,12 +1,15 @@
 """The port's quotient (kernel Q's plain twin) against the JAX package: the
 XLA route of ``pipeline.quotient_batch`` (B < 64) and the two TPU kernels as
 the CPU runs them, ``quotient_batch_fused`` (interpret mode, the Goldilocks
-route) and ``quotient_batch_mxu`` (the 44-bit route)."""
+route) and ``quotient_batch_mxu`` (the 44-bit route); then kernel Q's
+tables and a Python-int model of its cluster stage order and lazy
+arithmetic (``torch_cluster_model``) against the plain twin."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cluster_model as model
 
 from lambda_snark_tpu import Params, Profile, SecurityLevel
 from lambda_snark_tpu.commit.lwe import LweContext
@@ -21,7 +24,7 @@ from lambda_snark_tpu.pipeline import quotient_batch as jax_quotient_batch
 
 from lambda_snark_tpu_torch.convert import words_to_planes
 from lambda_snark_tpu_torch.ops import modarith
-from lambda_snark_tpu_torch.ops.quotient import QuotientPlan, quotient
+from lambda_snark_tpu_torch.ops.quotient import QuotientPlan, quotient, quotient_plain
 from lambda_snark_tpu_torch.pipeline import field_psi_for
 
 M = 16
@@ -107,3 +110,65 @@ def test_quotient_identity(name):
             rhs[x + M] += qv
             rhs[x] -= qv
         assert [v % q for v in lhs] == [v % q for v in rhs]
+
+
+def _ints(t):
+    return [int(v) for v in modarith.to_u64(t)]
+
+
+@pytest.mark.parametrize("name", sorted(MODULI))
+def test_plan_tables_match_definitions(name):
+    """The tables kernel Q reads: the twiddles of omega and omega^-1 in
+    stage-major order (stage s's twiddle at j at 2^s + j), the twist
+    psi^k / m at the DIF position that holds coefficient k (twist_rev), the
+    untwist psi^-k / (m (-2)) in natural order, and, for the 44-bit field,
+    every table's Shoup companion floor(w 2^64 / q), against their
+    Python-int definitions."""
+    q, m = MODULI[name], 64
+    psi = field_psi_for(m, q)
+    plan = QuotientPlan.create(m, q, psi)
+    inv_m, psi_inv = pow(m, q - 2, q), pow(psi, q - 2, q)
+    neg_half_inv = pow(q - 2, q - 2, q)
+    twist_rev = [pow(psi, model.rev(i, 6), q) * inv_m % q for i in range(m)]
+    untwist = [pow(psi_inv, k, q) * inv_m * neg_half_inv % q for k in range(m)]
+    omega = psi * psi % q
+    stage = lambda w: [1] + [pow(w, j * (m >> (s + 1)), q) for s in range(6) for j in range(1 << s)]
+    assert _ints(plan.tw_stage) == stage(omega)
+    assert _ints(plan.tw_inv_stage) == stage(pow(omega, q - 2, q))
+    assert _ints(plan.twist_rev) == twist_rev
+    assert _ints(plan.untwist) == untwist
+    if q == NTT_MODULUS:
+        assert plan.shoup is None
+        return
+    shoup = lambda vals: [(w << 64) // q for w in vals]
+    assert _ints(plan.shoup.tw_stage) == shoup(stage(omega))
+    assert _ints(plan.shoup.tw_inv_stage) == shoup(stage(pow(omega, q - 2, q)))
+    assert _ints(plan.shoup.twist_rev) == shoup(twist_rev)
+    assert _ints(plan.shoup.untwist) == shoup(untwist)
+    assert plan.shoup.inv_m == (inv_m << 64) // q
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("log_m", [6, 7, 8, 9])
+@pytest.mark.parametrize("name", sorted(MODULI))
+def test_cluster_model_matches_plain(name, log_m, cluster):
+    """Kernel Q's stage order over a cluster of C blocks (the cross-block
+    radix-C exchanges, the local stages, the natural-order gathers) and its
+    arithmetic (the 44-bit field's lazy Shoup words in [0, 2q) / [0, 4q),
+    asserted at every step) as Python ints, on the plan's tables, equal
+    ``quotient_plain``, which the tests above hold against the JAX package."""
+    q, m = MODULI[name], 1 << log_m
+    plan = QuotientPlan.create(m, q, field_psi_for(m, q))
+    words, _ = _inputs(q, batch=2, seed=log_m + cluster, bad_row=1, m=m)
+    sh = plan.shoup
+    comp = lambda attr: None if sh is None else _ints(getattr(sh, attr))
+    tables = (_ints(plan.tw_inv_stage), comp("tw_inv_stage"), _ints(plan.tw_stage),
+              comp("tw_stage"),
+              _ints(plan.twist_rev), comp("twist_rev"), _ints(plan.untwist), comp("untwist"),
+              plan.ntt.inv_m, 0 if sh is None else sh.inv_m)
+    fld = model.Shoup(q) if q == NTT_FRIENDLY_MODULUS else model.Canonical(q)
+    want = quotient_plain(plan, *words)
+    for i in range(2):
+        got = model.quotient_row(fld, tables, *(_ints(w[i]) for w in words), cluster)
+        assert [list(g) for g in got[:4]] == [_ints(w[i]) for w in want[:4]]
+        assert got[4] == bool(want[4][i]) == (i != 1)

@@ -1,12 +1,15 @@
 """The port's ring commitment (kernel R's plain twin, the sampler, the
 context) against the JAX package: ``lwe_jax.commit_batch`` and the TPU
-kernels as the CPU runs them, ``commit_batch_mxu`` and ``fused_commit``."""
+kernels as the CPU runs them, ``commit_batch_mxu`` and ``fused_commit``;
+then a Python-int model of kernel R's cluster stage order
+(``torch_cluster_model``) against the plain twin."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cluster_model as model
 
 from lambda_snark_tpu import Params, Profile, SecurityLevel
 from lambda_snark_tpu.commit.lwe import LweContext as JaxLweContext
@@ -22,7 +25,14 @@ import lambda_snark_tpu_torch as port
 from lambda_snark_tpu_torch.commit.lwe_device import DeviceCommitContext, commit_batch
 from lambda_snark_tpu_torch.convert import commit_context_from_numpy, words_to_planes
 from lambda_snark_tpu_torch.ops import modarith
-from lambda_snark_tpu_torch.ops.ring_commit import embed_signed, ring_commit
+from lambda_snark_tpu_torch.commit.lwe import goldilocks_ring_plan
+from lambda_snark_tpu_torch.ops.ring_commit import (
+    P,
+    RingCommitPlan,
+    embed_signed,
+    ring_commit,
+    ring_commit_plain,
+)
 from lambda_snark_tpu_torch.ops.sampler import prng_key
 
 Q = NTT_FRIENDLY_MODULUS
@@ -102,3 +112,31 @@ def test_commit_batch_matches_jax(ctxs, route):
     assert np.array_equal(got_s.numpy(), np.asarray(want_s))
     assert np.array_equal(got_e.numpy(), np.asarray(want_e))
     assert np.array_equal(words_to_planes(got_c, 4), np.asarray(want_c))
+
+
+@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("log_n", [6, 7, 8, 9])
+def test_cluster_model_matches_plain(log_n, cluster, k):
+    """Kernel R's stage order over a cluster of C blocks (embed and psi^t
+    into the top DIF stages' exchange, the local stages with A_hat_j o x
+    summed in the last pass, the last DIT stages' exchange into psi^-t / n,
+    e and msg) as Python ints, on the plan's tables, equals
+    ``ring_commit_plain``, which the tests above hold against the JAX
+    package."""
+    n, rows = 1 << log_n, 2
+    rng = np.random.default_rng(log_n * 10 + cluster + k)
+    ring = RingCommitPlan.create(rng.integers(0, P, size=(k, n), dtype=np.uint64),
+                                 goldilocks_ring_plan(n))
+    s = torch.from_numpy(rng.integers(-39, 40, size=(k, rows, n), dtype=np.int32))
+    e = torch.from_numpy(rng.integers(-39, 40, size=(rows, n), dtype=np.int32))
+    msg = modarith.to_words(rng.integers(0, P, size=(rows, n // 2 + 1), dtype=np.uint64))
+    ints = lambda t: [int(v) for v in modarith.to_u64(t)]
+    want = ring_commit_plain(ring, s, e, msg)
+    a_hat_rev = [ints(ring.a_hat_rev[j]) for j in range(k)]
+    tables = (ints(ring.ntt.psi_pows), ints(ring.ntt.psi_inv_n), ints(ring.tw_stage),
+              ints(ring.tw_inv_stage))
+    for i in range(rows):
+        got = model.ring_commit_row(P, s[:, i].tolist(), e[i].tolist(), ints(msg[i]),
+                                    a_hat_rev, *tables, cluster)
+        assert got == ints(want[i])
