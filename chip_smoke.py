@@ -75,9 +75,31 @@ Phases, each printing one flushed line with the seconds since start:
     bytes and a store that verifies; the ZK stream at m = 2048 (a batch and
     a tail) through ``verify_r1cs_zk``;
 17. ``entry()``: the prove stage at m = 16, n = 32, B = 2 equals the CPU's;
+18. ``prove_r1cs_succinct_batch(zk=True)`` at m = 2^13, S = 16 (masks of 68
+    words, n0 = 2^17): every proof verifies, proofs 0 and 1 equal a
+    ``device="cpu"`` run byte for byte, a flipped FRI path byte and a
+    flipped ``q_alpha`` are rejected, kernels Q, R, T and K launched (the
+    counts printed per batch), the median of five batches and the idle
+    share of one profiled batch; then kernels
+    K, T, Q and R at every shape that run launched them at, against their
+    twins (each shape held once in the script);
+19. the chunk-pipelined prover (``pipeline_chunk=32``) at m = 2^13,
+    S = 64 and 128: bytes equal to the unchunked prover's on the card for
+    every statement, every proof verifies, one front end per chunk; the
+    median of three batches of each route, alternated, and the idle share
+    of one profiled batch of each; then the S = 128 run's shapes as in 18;
+20. ``prove_r1cs_succinct_stream`` at m = 2^13, 40 witnesses in batches of
+    16: every proof through ``deserialize_any`` and the verifier, the same
+    bytes as one batch of 40, proofs/s, and a ``ProofStore`` resume (a run
+    cut after 20 proofs, then a full run); then its shapes as in 18;
+21. the host golden path on the card's machine (no card): the healthcare
+    quotient against ``artifacts/r1cs/healthcare_quotient.json``,
+    ``prove_r1cs(with_opening=True)`` through ``verify_r1cs_with_context``,
+    and kinds 1, 2, 3 and 6 through ``deserialize_any`` and their verifiers;
 
 then the JSON lines: kind 7 at m = 2^13 (proofs/s, breakdown, idle share),
-kind 7 at m = 2^14, the streams, and the ``kernels`` line: for each kernel
+kind 7 at m = 2^14, the streams, ZK kind 7, the pipelined prover, the
+kind-7 stream, the host path, and the ``kernels`` line: for each kernel
 on each path its time, its plain twin's time, its bound and its launches in
 that path's run, counted per C entry (the four-step NTT's entry launches
 two kernels, one per pass) and, for kernels K and T on the m = 2^14 kind-7
@@ -147,8 +169,6 @@ FOREST_TIME_REPS = 20  # host-clock leaves-to-roots times, median
 # row over a cluster of 8 blocks, and kernel T's four-step only for the LDE
 # (one forward transform, two passes); the long routes' entries run no time
 KIND7_LONG_M = 1 << 14
-KIND7_LONG_ENTRIES = ("keccak_group_forest", "keccak_forest", "ntt_four_step", "ntt_rows",
-                      "quotient_goldilocks", "ring_commit_goldilocks")
 KIND7_LONG_COUNTS = {"quotient_goldilocks": 1, "ring_commit_goldilocks": 1, "ntt_four_step": 2,
                      "quotient_pointwise": 0, "ring_twist": 0, "ring_accumulate": 0,
                      "ring_finish": 0}
@@ -159,6 +179,12 @@ ONE_LAUNCH_M = 1 << 16
 NTT_DEEP_LOG_M = 27
 # prove_r1cs_stream: three full batches and a partial tail; ZK at m = 2048
 STREAM_COUNT, STREAM_ZK_COUNT, STREAM_CUT = 3 * BATCH + 100, BATCH + 100, 300
+# ZK kind 7: the default FriParams' 30 queries give masks of 2 x 30 + 8 words
+FRI_QUERIES = 30
+# the chunk-pipelined prover: S = 64 and 128 in chunks of 32
+PIPE_SIZES, PIPE_CHUNK = (64, 128), 32
+# prove_r1cs_succinct_stream: two batches of 16 and a tail of 8
+STREAM7_COUNT, STREAM7_BATCH = 40, 16
 
 
 def sass_mix(path: str) -> dict:
@@ -269,14 +295,56 @@ def keccak_work(hashes: int, in_bytes: int):
 
 
 def ntt_work(rows: int, m: int, twiddled: bool, field: str = "goldilocks",
-             scaled: bool = False):
+             scaled: bool = False, tables: int = 0):
     """Bytes and ops of ``rows`` m-point NTTs (the four-step adds one
-    twiddle product per word, the inverse one 1/m product; tables are read
-    once)."""
+    twiddle product per word, the inverse one 1/m product, each pre or
+    post table one product per word; tables are read once)."""
     butterflies = rows * (m // 2) * (m.bit_length() - 1)
-    muls = butterflies + (rows * m if twiddled else 0) + (rows * m if scaled else 0)
-    nbytes = 2 * rows * m * 8 + (m if twiddled else m // 2) * 8
+    muls = butterflies + rows * m * (int(twiddled) + int(scaled) + tables)
+    nbytes = 2 * rows * m * 8 + (m if twiddled else m // 2) * 8 + tables * m * 8
     return nbytes, muls * OPS_MUL[field] + 2 * butterflies * OPS_ADD
+
+
+def ntt_hold(np, dev, rng, entry: str, shape, variant: str):
+    """(kernel, twin, input, work) of kernel T at one (entry, shape,
+    variant) of a path's launches. A forward four-step whose variant has
+    ``pre`` is the kind-7 LDE: it is held with the path's own offset^i
+    pre-table (``power_table(coset_offset(q), n0)``)."""
+    from lambda_snark_tpu_torch.ops import modarith
+    from lambda_snark_tpu_torch.ops.ntt import NttPlan, ntt_forward, ntt_inverse
+    from lambda_snark_tpu_torch.ops.ntt_batched import ntt_forward_batched, ntt_inverse_batched
+    from lambda_snark_tpu_torch.ops.ntt_large import (
+        NttLargePlan,
+        ntt_forward_large,
+        ntt_forward_large_plain,
+        power_table,
+    )
+    from lambda_snark_tpu_torch.proof.fri import coset_offset, root_of_order
+
+    direction, _mod, q, *tables = variant.split()
+    q, (rows, size) = int(q), shape
+    inverse = direction == "inverse"
+    field = "goldilocks" if q == modarith.GOLDILOCKS else "barrett"
+    x = modarith.to_words(rng.integers(0, q, size=shape, dtype=np.uint64), dev)
+    if tables == ["pre"] and entry == "ntt_four_step" and not inverse:
+        plan = NttLargePlan.create(size, root_of_order(q, size), device=dev)
+        pre = power_table(coset_offset(q), size, q, dev)
+        return (lambda v: ntt_forward_large(plan, v, pre=pre),
+                lambda v: ntt_forward_large_plain(plan, v, pre=pre), x,
+                ntt_work(rows, size, True, field, tables=1))
+    if tables:
+        raise RuntimeError(f"kernel T {entry} {variant}: no holder for these tables")
+    plan = NttPlan.create(size, q, root_of_order(q, size), device=dev)
+    return (lambda v: (ntt_inverse_batched if inverse else ntt_forward_batched)(plan, v),
+            lambda v: (ntt_inverse if inverse else ntt_forward)(plan, v), x,
+            ntt_work(rows, size, entry == "ntt_four_step", field, inverse))
+
+
+def ntt_name(variant: str) -> str:
+    """A kernel-line name's suffix for a transform variant: its direction
+    and its tables (``forward_pre``)."""
+    direction, _mod, _q, *tables = variant.split()
+    return "_".join([direction] + tables)
 
 
 def forest_work(trees: int, groups: int, n: int):
@@ -416,12 +484,32 @@ def kind7_circuit(lst, m: int):
     return builder.build()
 
 
+def reject_tampered(proof, r1cs, q: int, label: str) -> None:
+    """A kind-7 proof with a flipped byte in a FRI path, and one with a
+    flipped ``q_alpha``, must not verify."""
+    import dataclasses
+
+    from lambda_snark_tpu_torch.proof.succinct import verify_r1cs_succinct
+
+    q0 = proof.fri.queries[0]
+    field_name = "layer_openings" if q0.layer_openings else "input_openings"
+    ops = getattr(q0, field_name)
+    bad_op = dataclasses.replace(ops[0], path=bytes([ops[0].path[0] ^ 1]) + ops[0].path[1:])
+    bad_q = dataclasses.replace(q0, **{field_name: (bad_op,) + ops[1:]})
+    tampered = [
+        dataclasses.replace(proof, fri=dataclasses.replace(
+            proof.fri, queries=(bad_q,) + proof.fri.queries[1:])),
+        dataclasses.replace(proof, q_alpha=(proof.q_alpha + 1) % q),
+    ]
+    if any(verify_r1cs_succinct(p, [1], r1cs) for p in tampered):
+        raise RuntimeError(f"{label}: a tampered proof verified")
+
+
 def kind7_phases(np, torch, lst, dev, rng, hold, report):
     """Phases 8-12: kernels K and N, kernels Q and R at the kind-7 shapes,
     and ``prove_r1cs_succinct_batch`` on the card. Returns (kind-7 path
     launches, its launches per (entry, shape, variant), the kind-7
     end-to-end record)."""
-    import dataclasses
     import hashlib
     import struct
 
@@ -434,13 +522,14 @@ def kind7_phases(np, torch, lst, dev, rng, hold, report):
         NttLargePlan,
         ntt_forward_large,
         ntt_forward_large_plain,
+        power_table,
     )
     from lambda_snark_tpu_torch.ops.quotient import QuotientPlan, quotient, quotient_plain
     from lambda_snark_tpu_torch.ops.ring_commit import ring_commit, ring_commit_plain
     from lambda_snark_tpu_torch.pipeline import field_psi_for
     from lambda_snark_tpu_torch.proof import fri_device
     from lambda_snark_tpu_torch.proof import succinct_batch as sb
-    from lambda_snark_tpu_torch.proof.fri import FriParams, root_of_order
+    from lambda_snark_tpu_torch.proof.fri import FriParams, coset_offset, root_of_order
     from lambda_snark_tpu_torch.proof.succinct import SuccinctProofR1CS, verify_r1cs_succinct
     from lambda_snark_tpu_torch.proof.succinct_device import eval_device, quotient_lde_device
 
@@ -482,13 +571,17 @@ def kind7_phases(np, torch, lst, dev, rng, hold, report):
     phase("phase 8 kernel K: 256 sampled digests equal hashlib.sha3_256")
 
     # --- phase 9: kernel N ------------------------------------------------------
-    for key_, rows, size in (("ntt_goldilocks", 4 * s, n0), ("ntt_goldilocks_2pow20", 1, 1 << 20)):
+    # the LDE (4 S x n0) with its offset^i pre-table, as the path runs it
+    for key_, rows, size, pre in (
+            ("ntt_goldilocks", 4 * s, n0, power_table(coset_offset(gl), n0, gl, dev)),
+            ("ntt_goldilocks_2pow20", 1, 1 << 20, None)):
         plan = NttLargePlan.create(size, root_of_order(gl, size), device=dev)
         x = words((rows, size), gl)
         report[key_] = hold(
-            f"phase 9 kernel N {rows}x{size}", lambda v, plan=plan: ntt_forward_large(plan, v),
-            lambda v, plan=plan: ntt_forward_large_plain(plan, v), (x,),
-            ntt_work(rows, size, True))
+            f"phase 9 kernel N {rows}x{size}{'' if pre is None else ' pre-table'}",
+            lambda v, plan=plan, pre=pre: ntt_forward_large(plan, v, pre=pre),
+            lambda v, plan=plan, pre=pre: ntt_forward_large_plain(plan, v, pre=pre), (x,),
+            ntt_work(rows, size, True, tables=int(pre is not None)))
     # the leaf at B = 128 (the TPU leaf's radix), and at the kind-7 path's
     # shape: FRI's final polynomials, S rows of final_len << log_blowup
     # points with the inverse root
@@ -513,9 +606,7 @@ def kind7_phases(np, torch, lst, dev, rng, hold, report):
         lambda *v: quotient(qplan, *v), lambda *v: quotient_plain(qplan, *v), (a, b, c),
         quotient_work(s, m, "goldilocks"))
     report["quotient_goldilocks_kind7"]["cluster"] = cluster_of(kernels, s, m, 3)
-    ctx7 = lst.LweContext(lst.Params(lst.SecurityLevel.BITS128,
-                                     lst.Profile.ring_b(n=m, k=1, q=gl, sigma=SIGMA)),
-                          context_seed=0)
+    ctx7 = kind7_context(lst, m)
     ring7 = DeviceCommitContext.from_host(ctx7, dev).ring
     s_draws = torch.from_numpy(rng.integers(-39, 40, size=(1, s, m), dtype=np.int32)).to(dev)
     e_draws = torch.from_numpy(rng.integers(-39, 40, size=(s, m), dtype=np.int32)).to(dev)
@@ -529,10 +620,7 @@ def kind7_phases(np, torch, lst, dev, rng, hold, report):
 
     # --- phase 11: prove_r1cs_succinct_batch on the card -------------------------
     r1cs7 = kind7_circuit(lst, m)
-    xs = rng.integers(0, gl, size=(s, m), dtype=np.uint64)
-    ys = modarith.to_u64(modarith.mul_mod(modarith.to_words(xs, dev),
-                                          modarith.to_words(xs, dev), gl))
-    wits = np.concatenate([np.ones((s, 1), np.uint64), xs, ys], axis=1)
+    wits = kind7_witnesses(np, lst, dev, rng, s, m)
     seeds = [7] + list(range(100, 100 + s - 1))
     params = FriParams()
     lst.prove_r1cs_succinct_batch(r1cs7, wits, ctx7, seeds)  # warm-up
@@ -545,10 +633,8 @@ def kind7_phases(np, torch, lst, dev, rng, hold, report):
     elapsed = time.time() - t
     launches = kernels.launches()
     shapes = dict(kernels.LAUNCHES)
-    if min(launches[e] for e in KIND7_ENTRIES) < 1:
-        raise RuntimeError(f"kind 7: a kernel of the path was not launched: {launches}")
-    if (any(launches[e] for e in KECCAK_PER_LEVEL)
-            or sum(launches[e] for e in FOREST_ENTRIES) != KIND7_FORESTS):
+    check_kind7_launches(launches, "kind 7")
+    if sum(launches[e] for e in FOREST_ENTRIES) != KIND7_FORESTS:
         raise RuntimeError(f"kind 7: not one forest launch per Merkle forest: {launches}")
     if len(proofs) != s or not all(verify_r1cs_succinct(p, [1], r1cs7) for p in proofs):
         raise RuntimeError("kind 7: a proof from the card does not verify")
@@ -556,18 +642,7 @@ def kind7_phases(np, torch, lst, dev, rng, hold, report):
         if proofs[i].to_bytes() != cpu[i].to_bytes():
             raise RuntimeError(f"kind 7: proof {i} differs from the CPU run")
     p0 = proofs[0]
-    q0 = p0.fri.queries[0]
-    field_name = "layer_openings" if q0.layer_openings else "input_openings"
-    ops = getattr(q0, field_name)
-    bad_op = dataclasses.replace(ops[0], path=bytes([ops[0].path[0] ^ 1]) + ops[0].path[1:])
-    bad_q = dataclasses.replace(q0, **{field_name: (bad_op,) + ops[1:]})
-    tampered = [
-        dataclasses.replace(p0, fri=dataclasses.replace(
-            p0.fri, queries=(bad_q,) + p0.fri.queries[1:])),
-        dataclasses.replace(p0, q_alpha=(p0.q_alpha + 1) % gl),
-    ]
-    if any(verify_r1cs_succinct(p, [1], r1cs7) for p in tampered):
-        raise RuntimeError("kind 7: a tampered proof verified")
+    reject_tampered(p0, r1cs7, gl, "kind 7")
     times = [elapsed]
     for _ in range(KIND7_REPS - 1):
         torch.cuda.synchronize()
@@ -742,9 +817,7 @@ def kernel_t_phases(np, torch, lst, dev, rng, hold, report):
         lambda *v: qmod.quotient_pointwise(gl, *v),
         lambda *v: qmod.quotient_pointwise_plain(gl, *v), (*odd, a, b, c),
         elementwise_work(6 * s * m * 8, s * m * 8 + s * 4, 2 * s * m, 2 * s * m))
-    ctx7 = lst.LweContext(lst.Params(lst.SecurityLevel.BITS128,
-                                     lst.Profile.ring_b(n=m, k=1, q=gl, sigma=SIGMA)),
-                          context_seed=0)
+    ctx7 = kind7_context(lst, m)
     ring = rmod.RingCommitPlan.create(ctx7.a_hat, goldilocks_ring_plan(m, dev))
     s_draws = torch.from_numpy(rng.integers(-39, 40, size=(1, s, m), dtype=np.int32)).to(dev)
     e_draws = torch.from_numpy(rng.integers(-39, 40, size=(s, m), dtype=np.int32)).to(dev)
@@ -812,17 +885,11 @@ def kind7_long_phase(np, torch, lst, rng):
     """Phase 15: ``prove_r1cs_succinct_batch`` at m = 2^14, S = 16 on the card.
     Returns (the path's launches, its record)."""
     from lambda_snark_tpu_torch import kernels
-    from lambda_snark_tpu_torch.ops import modarith
     from lambda_snark_tpu_torch.proof.succinct import verify_r1cs_succinct
 
-    gl, m, s = lst.NTT_MODULUS, KIND7_LONG_M, KIND7_S
-    ctx = lst.LweContext(lst.Params(lst.SecurityLevel.BITS128,
-                                    lst.Profile.ring_b(n=m, k=1, q=gl, sigma=SIGMA)),
-                         context_seed=0)
-    r1cs = kind7_circuit(lst, m)
-    xs = rng.integers(0, gl, size=(s, m), dtype=np.uint64)
-    ys = modarith.to_u64(modarith.mul_mod(modarith.to_words(xs), modarith.to_words(xs), gl))
-    wits = np.concatenate([np.ones((s, 1), np.uint64), xs, ys], axis=1)
+    m, s = KIND7_LONG_M, KIND7_S
+    ctx, r1cs = kind7_context(lst, m), kind7_circuit(lst, m)
+    wits = kind7_witnesses(np, lst, torch.device("cuda"), rng, s, m)
     seeds = list(range(200, 200 + s))
     lst.prove_r1cs_succinct_batch(r1cs, wits, ctx, seeds)  # warm-up
     cpu = lst.prove_r1cs_succinct_batch(r1cs, wits[:KIND7_CHECK], ctx, seeds[:KIND7_CHECK],
@@ -834,13 +901,11 @@ def kind7_long_phase(np, torch, lst, rng):
     times = [time.time() - t]
     launches = kernels.launches()
     shapes = dict(kernels.LAUNCHES)
-    if min(launches[e] for e in KIND7_LONG_ENTRIES) < 1:
-        raise RuntimeError(f"kind 7 at m={m}: a kernel of the path was not launched: {launches}")
+    check_kind7_launches(launches, f"kind 7 at m={m}")
     if any(launches[e] != n for e, n in KIND7_LONG_COUNTS.items()):
         raise RuntimeError(f"kind 7 at m={m}: launches {nonzero(launches)}, expected "
                            f"{KIND7_LONG_COUNTS}")
-    if (any(launches[e] for e in KECCAK_PER_LEVEL)
-            or sum(launches[e] for e in FOREST_ENTRIES) != KIND7_LONG_FORESTS):
+    if sum(launches[e] for e in FOREST_ENTRIES) != KIND7_LONG_FORESTS:
         raise RuntimeError(f"kind 7 at m={m}: not one forest launch per Merkle forest: "
                            f"{launches}")
     if len(proofs) != s or not all(verify_r1cs_succinct(p, [1], r1cs) for p in proofs):
@@ -870,11 +935,7 @@ def kind7_long_shapes_phase(np, torch, lst, dev, rng, hold, shapes, report):
     each against its twin on fresh random words of that shape. Returns
     ``kernels`` line entries with the run's launches at each shape."""
     from lambda_snark_tpu_torch.ops import modarith
-    from lambda_snark_tpu_torch.ops.ntt import NttPlan, ntt_forward, ntt_inverse
-    from lambda_snark_tpu_torch.ops.ntt_batched import ntt_forward_batched, ntt_inverse_batched
-    from lambda_snark_tpu_torch.proof.fri import root_of_order
 
-    gl = lst.NTT_MODULUS
     held_t = {(r["entry"], r["shape"], r["variant"]) for r in report.values() if "entry" in r}
     src = "lambda_snark_tpu_torch/csrc"
     out = []
@@ -886,23 +947,15 @@ def kind7_long_shapes_phase(np, torch, lst, dev, rng, hold, shapes, report):
             replaces = KECCAK_SRC
             src_file = "keccak.cu"
         elif entry.startswith("ntt_") and (entry, shape, variant) not in held_t:
-            direction, q = variant.split(" mod ")
-            q, (rows, size) = int(q), shape
-            inverse = direction == "inverse"
-            plan = NttPlan.create(size, q, root_of_order(q, size), device=dev)
-            x = modarith.to_words(rng.integers(0, q, size=shape, dtype=np.uint64), dev)
-            rec = hold(label,
-                       lambda v: (ntt_inverse_batched if inverse else ntt_forward_batched)(plan, v),
-                       lambda v: (ntt_inverse if inverse else ntt_forward)(plan, v), (x,),
-                       ntt_work(rows, size, entry == "ntt_four_step",
-                                "goldilocks" if q == gl else "barrett", inverse))
+            fn, plain, x, work = ntt_hold(np, dev, rng, entry, shape, variant)
+            rec = hold(label, fn, plain, (x,), work)
             replaces = "lambda_snark_tpu/ops/ntt_pallas.py:126"
             src_file = "ntt.cu"
         else:
             continue
         name = f"{entry}_kind7_2pow14_{'x'.join(map(str, shape))}"
         if variant:
-            name += f"_{variant.split()[0]}"
+            name += f"_{ntt_name(variant)}" if entry.startswith("ntt_") else ""
         out.append(dict(name=name, route="cuda", source=f"{src}/{src_file}", replaces=replaces,
                         launches=launches, **rec, library_ms=None))
     return out
@@ -997,6 +1050,344 @@ def stream_phases(np, torch, lst, dev, rng, ctx, q):
     phase(f"phase 17 entry(): prove stage m=16 n=32 B=2 equals the CPU run; launches "
           f"{nonzero(launches['entry'])}")
     return launches, record
+
+
+def kind7_witnesses(np, lst, dev, rng, count: int, m: int) -> np.ndarray:
+    """``count`` witnesses [1, x, x^2] of ``kind7_circuit``."""
+    from lambda_snark_tpu_torch.ops import modarith
+
+    gl = lst.NTT_MODULUS
+    xs = rng.integers(0, gl, size=(count, m), dtype=np.uint64)
+    ys = modarith.to_u64(modarith.mul_mod(modarith.to_words(xs, dev),
+                                          modarith.to_words(xs, dev), gl))
+    return np.concatenate([np.ones((count, 1), np.uint64), xs, ys], axis=1)
+
+
+def kind7_context(lst, m: int):
+    return lst.LweContext(lst.Params(lst.SecurityLevel.BITS128,
+                                     lst.Profile.ring_b(n=m, k=1, q=lst.NTT_MODULUS,
+                                                        sigma=SIGMA)), context_seed=0)
+
+
+def check_kind7_launches(launches: dict, label: str) -> None:
+    """Every kernel of a kind-7 path launched, one forest launch per Merkle
+    forest (no per-level launch of kernel K)."""
+    if min(launches[e] for e in KIND7_ENTRIES) < 1:
+        raise RuntimeError(f"{label}: a kernel of the path was not launched: {nonzero(launches)}")
+    if any(launches[e] for e in KECCAK_PER_LEVEL):
+        raise RuntimeError(f"{label}: kernel K launched per level: {nonzero(launches)}")
+
+
+def kind7_zk_phase(np, torch, lst, dev, rng):
+    """Phase 18: ``prove_r1cs_succinct_batch(zk=True)`` at m = 2^13, S = 16
+    on the card. Returns (the path's launches, its launches per (entry,
+    shape, variant), its record)."""
+    from lambda_snark_tpu_torch import kernels
+    from lambda_snark_tpu_torch.proof.succinct import verify_r1cs_succinct
+
+    gl, m, s = lst.NTT_MODULUS, KIND7_M, KIND7_S
+    ctx, r1cs = kind7_context(lst, m), kind7_circuit(lst, m)
+    wits = kind7_witnesses(np, lst, dev, rng, s, m)
+    seeds, blinds = list(range(300, 300 + s)), list(range(400, 400 + s))
+
+    def prove(device="cuda", rows=s):
+        return lst.prove_r1cs_succinct_batch(r1cs, wits[:rows], ctx, seeds[:rows], True,
+                                             blinding_seeds=blinds[:rows], device=device)
+
+    prove()  # warm-up
+    cpu = prove("cpu", KIND7_CHECK)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t = time.time()
+    proofs = prove()
+    times = [time.time() - t]
+    launches, shapes = kernels.launches(), dict(kernels.LAUNCHES)
+    check_kind7_launches(launches, "ZK kind 7")
+    if len(proofs) != s or not all(verify_r1cs_succinct(p, [1], r1cs) for p in proofs):
+        raise RuntimeError("ZK kind 7: a proof from the card does not verify")
+    if any(p.mask_len != 2 * FRI_QUERIES + 8 for p in proofs):
+        raise RuntimeError("ZK kind 7: a proof without its masks")
+    for i in range(KIND7_CHECK):
+        if proofs[i].to_bytes() != cpu[i].to_bytes():
+            raise RuntimeError(f"ZK kind 7: proof {i} differs from the CPU run")
+    reject_tampered(proofs[0], r1cs, gl, "ZK kind 7")
+    for _ in range(KIND7_REPS - 1):
+        torch.cuda.synchronize()
+        t = time.time()
+        prove()
+        times.append(time.time() - t)
+    median = sorted(times)[len(times) // 2]
+    size = len(proofs[0].to_bytes())
+    trace = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                         "kind7_zk_trace.json")
+    wall, busy, top = device_busy(torch, prove, trace)
+    idle = None if busy is None else 1.0 - busy / wall
+    phase(f"phase 18 prove_r1cs_succinct_batch zk=True m={m} S={s} mask_len "
+          f"{proofs[0].mask_len}: {s} proofs verify, first {KIND7_CHECK} byte-identical to the "
+          f"CPU run, a flipped path byte and a flipped q_alpha rejected; launches per batch "
+          f"{nonzero(launches)}; end to end {[round(x, 4) for x in times]} s, median "
+          f"{median:.4f} s ({s / median:.2f} proofs/s), {size} bytes per proof; one profiled "
+          f"batch {wall:.4f} s wall, device busy "
+          f"{'not measured' if busy is None else f'{busy:.4f} s, idle share {idle:.3f}'}; "
+          f"most device time: {[(k, round(v, 3)) for k, v in top]}")
+    return launches, shapes, dict(m=m, statements=s, mask_len=proofs[0].mask_len,
+                                  end_to_end_s=times, end_to_end_median_s=median,
+                                  proofs_per_s=s / median, proof_bytes=size,
+                                  launches_per_batch=nonzero(launches), profiled_wall_s=wall,
+                                  device_busy_s=busy, device_idle_share=idle,
+                                  top_kernels_ms=top)
+
+
+def pipelined_phase(np, torch, lst, dev, rng):
+    """Phase 19: the chunk-pipelined prover (``pipeline_chunk``) at m = 2^13,
+    S = 64 and 128, against the unchunked prover in the same call. Returns
+    (the S = 128 pipelined run's launches, its launches per shape, the
+    record)."""
+    from lambda_snark_tpu_torch import kernels
+    from lambda_snark_tpu_torch.proof.succinct import verify_r1cs_succinct
+
+    m = KIND7_M
+    ctx, r1cs = kind7_context(lst, m), kind7_circuit(lst, m)
+    wits = kind7_witnesses(np, lst, dev, rng, max(PIPE_SIZES), m)
+    seeds = list(range(500, 500 + max(PIPE_SIZES)))
+    trace = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                         "pipelined_trace.json")
+    record, launches, shapes = {}, {}, {}
+    for s in PIPE_SIZES:
+        runs = {route: (lambda chunk=chunk, s=s: lst.prove_r1cs_succinct_batch(
+            r1cs, wits[:s], ctx, seeds[:s], pipeline_chunk=chunk))
+            for route, chunk in (("unchunked", None), ("pipelined", PIPE_CHUNK))}
+        want = [p.to_bytes() for p in runs["unchunked"]()]  # warm-up and reference
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        got = runs["pipelined"]()
+        launches[s], shapes[s] = kernels.launches(), dict(kernels.LAUNCHES)
+        check_kind7_launches(launches[s], f"pipelined S={s}")
+        chunks = -(-s // PIPE_CHUNK)
+        if (launches[s]["quotient_goldilocks"], launches[s]["ring_commit_goldilocks"],
+                launches[s]["keccak_group_forest"]) != (chunks,) * 3:
+            raise RuntimeError(f"pipelined S={s}: not one front end per chunk: "
+                               f"{nonzero(launches[s])}")
+        if [p.to_bytes() for p in got] != want:
+            raise RuntimeError(f"pipelined S={s}: bytes differ from the unchunked prover's")
+        if not all(verify_r1cs_succinct(p, [1], r1cs) for p in got):
+            raise RuntimeError(f"pipelined S={s}: a proof does not verify")
+        times = {route: [] for route in runs}
+        for route in ("unchunked", "pipelined", "pipelined", "unchunked", "unchunked",
+                      "pipelined"):
+            torch.cuda.synchronize()
+            t = time.time()
+            runs[route]()
+            times[route].append(time.time() - t)
+        median = {route: sorted(v)[len(v) // 2] for route, v in times.items()}
+        idle = {}
+        for route, fn in runs.items():
+            wall, busy, _top = device_busy(torch, fn, trace)
+            idle[route] = dict(profiled_wall_s=wall, device_busy_s=busy,
+                               device_idle_share=None if busy is None else 1.0 - busy / wall)
+        record[s] = dict(statements=s, chunk=PIPE_CHUNK, end_to_end_s=times,
+                         median_s=median, proofs_per_s={r: s / v for r, v in median.items()},
+                         profiled=idle, launches_pipelined=nonzero(launches[s]))
+        phase(f"phase 19 pipeline_chunk={PIPE_CHUNK} S={s} m={m}: {s} proofs byte-identical "
+              f"to the unchunked prover's, all verify; launches {nonzero(launches[s])}; "
+              f"median of 3: " + ", ".join(f"{r} {v:.4f} s ({s / v:.2f} proofs/s)"
+                                           for r, v in median.items())
+              + "; idle share of one profiled batch "
+              + ", ".join(f"{r} {v['device_idle_share'] if v['device_idle_share'] is None else round(v['device_idle_share'], 3)}"
+                          for r, v in idle.items()))
+    big = max(PIPE_SIZES)
+    return launches[big], shapes[big], record
+
+
+def kind7_stream_phase(np, torch, lst, dev, rng):
+    """Phase 20: ``prove_r1cs_succinct_stream`` at m = 2^13 in batches of 16
+    (two and a half batches): every proof through ``deserialize_any`` and
+    ``verify_r1cs_succinct``, proofs/s, and a ``ProofStore`` resume (a run
+    cut after half the proofs, then a full run). Returns (the run's
+    launches, its launches per shape, the record)."""
+    import shutil
+
+    from lambda_snark_tpu_torch import kernels
+    from lambda_snark_tpu_torch.proof.succinct import verify_r1cs_succinct
+
+    m = KIND7_M
+    ctx, r1cs = kind7_context(lst, m), kind7_circuit(lst, m)
+    ws = list(kind7_witnesses(np, lst, dev, rng, STREAM7_COUNT, m))
+
+    def stream(src, store=None, batch=STREAM7_BATCH):
+        return lst.prove_r1cs_succinct_stream(r1cs, iter(src), ctx, SEED, batch=batch,
+                                              store=store)
+
+    list(stream(ws[:STREAM7_BATCH]))  # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t = time.time()
+    out = list(stream(ws))
+    elapsed = time.time() - t
+    launches, shapes = kernels.launches(), dict(kernels.LAUNCHES)
+    check_kind7_launches(launches, "kind-7 stream")
+    if [i for i, _p in out] != list(range(STREAM7_COUNT)):
+        raise RuntimeError("kind-7 stream: indices out of order")
+    if not all(verify_r1cs_succinct(lst.deserialize_any(p.to_bytes()), [1], r1cs)
+               for _i, p in out):
+        raise RuntimeError("kind-7 stream: a proof does not verify after deserialize_any")
+    whole = [p.to_bytes() for _i, p in stream(ws, batch=STREAM7_COUNT)]
+    if whole != [p.to_bytes() for _i, p in out]:
+        raise RuntimeError("kind-7 stream: the bytes depend on the batch size")
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "kind7_store")
+    shutil.rmtree(root, ignore_errors=True)
+    cut = stream(ws, lst.ProofStore(root))
+    first = [next(cut)[1].to_bytes() for _ in range(STREAM7_COUNT // 2)]
+    cut.close()
+    again = [p.to_bytes() for _i, p in stream(ws, lst.ProofStore(root))]
+    swept = lst.ProofStore(root).verify_all(r1cs)
+    if (first != whole[: STREAM7_COUNT // 2] or again != whole
+            or len(swept) != STREAM7_COUNT or not all(swept.values())):
+        raise RuntimeError("kind-7 stream: the resumed run or the store disagrees")
+    phase(f"phase 20 prove_r1cs_succinct_stream m={m} batch={STREAM7_BATCH}: "
+          f"{STREAM7_COUNT} proofs in order, each through deserialize_any and "
+          f"verify_r1cs_succinct, the same bytes in one batch; launches {nonzero(launches)}; "
+          f"{elapsed:.3f} s ({STREAM7_COUNT / elapsed:.2f} proofs/s); a ProofStore run cut "
+          f"after {STREAM7_COUNT // 2} proofs, then a full run, gives the same bytes and a "
+          f"store of {len(swept)} that verifies")
+    return launches, shapes, dict(m=m, proofs=STREAM7_COUNT, batch=STREAM7_BATCH,
+                                  end_to_end_s=elapsed, proofs_per_s=STREAM7_COUNT / elapsed)
+
+
+def host_golden_phase(np, lst):
+    """Phase 21: the host golden path (Python ints, no card): the healthcare
+    quotient against ``artifacts/r1cs/healthcare_quotient.json``,
+    ``prove_r1cs(with_opening=True)`` through ``verify_r1cs_with_context``
+    (and a flipped commitment word rejected), and kinds 1, 2, 3 and 6
+    through ``deserialize_any`` and their verifiers. Returns host seconds
+    per step."""
+    import dataclasses
+
+    from lambda_snark_tpu_torch.circuits import healthcare
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "artifacts", "r1cs", "healthcare_quotient.json")) as f:
+        art = json.load(f)
+    q = art["modulus"]
+    r1cs = healthcare.build_healthcare_circuit(q)
+    w = healthcare.high_risk_witness(q)
+    public = r1cs.public_inputs(w)
+    times = {}
+    t = time.time()
+    if r1cs.compute_quotient_poly(w) != art["quotient"]:
+        raise RuntimeError("host path: the healthcare quotient differs from the artifact")
+    times["quotient_s"] = time.time() - t
+    t = time.time()
+    ctx = lst.setup(lst.Params(lst.SecurityLevel.BITS128,
+                               lst.Profile.ring_b(n=RING_N, k=RING_K, q=q, sigma=SIGMA)))
+    times["setup_s"] = time.time() - t
+    t = time.time()
+    proof = lst.deserialize_any(lst.prove_r1cs(r1cs, w, ctx, 0xCAFEBABE,
+                                               with_opening=True).to_bytes())
+    times["prove_r1cs_with_opening_s"] = time.time() - t
+    t = time.time()
+    if not lst.verify_r1cs_with_context(proof, public, r1cs, ctx):
+        raise RuntimeError("host path: verify_r1cs_with_context rejects an honest proof")
+    times["verify_r1cs_with_context_s"] = time.time() - t
+    words = proof.commitment_q.words.copy()
+    words[0] ^= np.uint64(1)
+    if lst.verify_r1cs_with_context(dataclasses.replace(proof, commitment_q=lst.Commitment(words)),
+                                    public, r1cs, ctx):
+        raise RuntimeError("host path: a flipped commitment word verified")
+    cases = (
+        ("kind1", lambda: lst.prove_simple(w, public, ctx, q, 7),
+         lambda p: lst.verify_simple(p, public, q)),
+        ("kind2", lambda: lst.prove_r1cs(r1cs, w, ctx, 7),
+         lambda p: lst.verify_r1cs(p, public, r1cs)),
+        ("kind3", lambda: lst.prove_r1cs_zk(r1cs, w, ctx, 7, blinding_seed=8),
+         lambda p: lst.verify_r1cs_zk(p, public, r1cs)),
+        ("kind6", lambda: lst.prove_r1cs(r1cs, w, ctx, 7, bind_circuit=True),
+         lambda p: lst.verify_r1cs(p, public, r1cs)))
+    for label, prove, check in cases:
+        t = time.time()
+        blob = prove().to_bytes()
+        decoded = lst.deserialize_any(blob)
+        if decoded.to_bytes() != blob or blob[8] != int(label[-1]) or not check(decoded):
+            raise RuntimeError(f"host path: {label} does not round-trip and verify")
+        times[f"{label}_prove_round_trip_verify_s"] = time.time() - t
+    phase(f"phase 21 host golden path (healthcare, q={q}, ring n={RING_N} k={RING_K}): the "
+          f"quotient equals the artifact, prove_r1cs(with_opening=True) passes "
+          f"verify_r1cs_with_context and a flipped commitment word does not; kinds 1, 2, 3, 6 "
+          f"round-trip through deserialize_any and verify; host s {times}")
+    return times
+
+
+def hold_path_shapes(np, torch, lst, dev, rng, hold, shapes, held, tag, ctx, num) -> list:
+    """Kernels K, T, Q and R at every (entry, input shape, variant) of a
+    path's run (``kernels.LAUNCHES``) against their twins, each shape held
+    once in the script (``held`` keeps the records); returns ``kernels``
+    line entries with the run's launches at each shape, and fails unless
+    every launch of those entries is listed."""
+    from lambda_snark_tpu_torch.ops import modarith
+    from lambda_snark_tpu_torch.ops.quotient import QuotientPlan, quotient, quotient_plain
+    from lambda_snark_tpu_torch.ops.ring_commit import ring_commit, ring_commit_plain
+    from lambda_snark_tpu_torch.pipeline import field_psi_for
+    from lambda_snark_tpu_torch.proof.succinct_device import device_commit_context
+
+    gl = lst.NTT_MODULUS
+    src = "lambda_snark_tpu_torch/csrc"
+    ring_src = "lambda_snark_tpu/ops/ring_mxu.py:229; lambda_snark_tpu/ops/ring_pallas.py:230"
+    where = {"quotient_goldilocks": ("quotient.cu", "lambda_snark_tpu/ops/quotient_pallas.py:143"),
+             "ring_commit_goldilocks": ("ring_commit.cu", ring_src),
+             "ntt_rows": ("ntt.cu", "lambda_snark_tpu/ops/ntt_pallas.py:126"),
+             "ntt_four_step": ("ntt.cu", "lambda_snark_tpu/ops/ntt_pallas.py:126; "
+                                         "lambda_snark_tpu/ops/ntt_mxu.py:631"),
+             "keccak_group_forest": ("keccak.cu", KECCAK_SRC),
+             "keccak_forest": ("keccak.cu", KECCAK_SRC)}
+    words = lambda shape, q=gl: modarith.to_words(rng.integers(0, q, size=shape,
+                                                               dtype=np.uint64), dev)
+    out = []
+    for key, launches in sorted(shapes.items()):
+        entry, shape, variant = key
+        if entry not in where:
+            raise RuntimeError(f"{tag}: an entry with no holder on this path: {entry}")
+        label = f"phase {num} {tag} {entry} {'x'.join(map(str, shape))} {variant}".rstrip()
+        if key not in held:
+            if entry in FOREST_ENTRIES:
+                x, fn, plain, _ = forest_inputs(np, modarith, dev, rng, entry, shape)
+                held[key] = hold(label, fn, plain, (x,), forest_work(*shape), plain_reps=1)
+            elif entry.startswith("ntt_"):
+                fn, plain, x, work = ntt_hold(np, dev, rng, entry, shape, variant)
+                held[key] = hold(label, fn, plain, (x,), work, plain_reps=1)
+            elif entry == "quotient_goldilocks":
+                rows, m = shape
+                plan = QuotientPlan.create(m, gl, field_psi_for(m, gl), device=dev)
+                a, b = words(shape), words(shape)
+                held[key] = hold(label, lambda *v: quotient(plan, *v),
+                                 lambda *v: quotient_plain(plan, *v),
+                                 (a, b, modarith.mul_mod(a, b, gl)),
+                                 quotient_work(rows, m, "goldilocks"), plain_reps=1)
+            else:  # ring_commit_goldilocks: e (rows, n), a message of n words
+                rows, n = shape
+                ring = device_commit_context(ctx, dev).ring
+                s_draws = torch.from_numpy(rng.integers(-39, 40, size=(ctx.k, rows, n),
+                                                        dtype=np.int32)).to(dev)
+                e_draws = torch.from_numpy(rng.integers(-39, 40, size=shape,
+                                                        dtype=np.int32)).to(dev)
+                held[key] = hold(label, lambda *v: ring_commit(ring, *v),
+                                 lambda *v: ring_commit_plain(ring, *v),
+                                 (s_draws, e_draws, words(shape)),
+                                 ring_work(rows, n, ctx.k, n), plain_reps=1)
+        src_file, replaces = where[entry]
+        name = f"{entry}_{tag}_{'x'.join(map(str, shape))}"
+        if variant:
+            name += f"_{ntt_name(variant)}" if entry.startswith("ntt_") else \
+                f"_{variant.replace(' ', '')}"
+        out.append(dict(name=name, route="cuda", source=f"{src}/{src_file}", replaces=replaces,
+                        launches=launches, **held[key], library_ms=None))
+    for entry in where:
+        listed = sum(e["launches"] for e in out if e["name"].startswith(f"{entry}_{tag}_"))
+        run = sum(n for (e, _s, _v), n in shapes.items() if e == entry)
+        if listed != run:
+            raise RuntimeError(f"{tag}: {entry} launched {run} times, {listed} listed")
+    phase(f"phase {num} {tag}: kernels K, T, Q and R held at each of the {len(shapes)} (entry, shape, "
+          f"variant) triples of the run; every launch of theirs listed")
+    return out
 
 
 def main() -> int:
@@ -1306,6 +1697,20 @@ def main() -> int:
         entries.append(dict(name=name, route="cuda", source=f"{src}/{src_file}",
                             replaces=replaces, launches=launches, **report[rep],
                             library_ms=None))
+    held = {(r["entry"], tuple(r["shape"]), r["variant"]):
+            {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
+            for r in report.values() if "entry" in r}
+    ctx7 = kind7_context(lst, KIND7_M)
+    zk_launches, zk_shapes, kind7_zk = kind7_zk_phase(np, torch, lst, dev, rng)
+    entries += hold_path_shapes(np, torch, lst, dev, rng, hold, zk_shapes, held, "kind7_zk",
+                                ctx7, 18)
+    pipe_launches, pipe_shapes, pipelined = pipelined_phase(np, torch, lst, dev, rng)
+    entries += hold_path_shapes(np, torch, lst, dev, rng, hold, pipe_shapes, held,
+                                f"pipelined_s{max(PIPE_SIZES)}", ctx7, 19)
+    s7_launches, s7_shapes, stream7 = kind7_stream_phase(np, torch, lst, dev, rng)
+    entries += hold_path_shapes(np, torch, lst, dev, rng, hold, s7_shapes, held,
+                                "kind7_stream", ctx7, 20)
+    host = host_golden_phase(np, lst)
     print(json.dumps({"kind7": kind7}), flush=True)
     print(json.dumps({"kind7_2pow14": kind7_long, "launches_kind7_2pow14": k7_long,
                       "shape_launches_kind7_2pow14": [
@@ -1313,6 +1718,14 @@ def main() -> int:
           flush=True)
     print(json.dumps({"stream": stream, "launches_stream": st}), flush=True)
     print(json.dumps({"forest_leaves_to_roots_ms": forests}), flush=True)
+    print(json.dumps({"kind7_zk": kind7_zk, "launches_kind7_zk": nonzero(zk_launches)}),
+          flush=True)
+    print(json.dumps({"pipelined": pipelined,
+                      f"launches_pipelined_s{max(PIPE_SIZES)}": nonzero(pipe_launches)}),
+          flush=True)
+    print(json.dumps({"kind7_stream": stream7, "launches_kind7_stream": nonzero(s7_launches)}),
+          flush=True)
+    print(json.dumps({"host_golden_s": host}), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)

@@ -1,7 +1,7 @@
 """Public parameters, profiles and field constants.
 
 The port's copy of the parts of the JAX package's ``core/params.py`` that
-the batched prover reads: the moduli, the 45-bit roots of unity, and
+the provers read: the moduli, the 45-bit roots of unity, and
 ``Params``/``Profile``/``SecurityLevel`` with the same validation.
 """
 
@@ -17,6 +17,13 @@ NTT_MODULUS = 18446744069414584321
 
 #: Primitive 2^32-th root of unity mod NTT_MODULUS.
 NTT_PRIMITIVE_ROOT = 1753635133440165772
+
+#: The composite modulus 2^44 + 1 = 17 * 1034834473201 of the test vectors
+#: tv-0/1/2 (kept for conformance only).
+LEGACY_COMPOSITE_MODULUS = 17592186044417
+
+#: The prime that replaces it in the reference CLI and the example circuits.
+LEGACY_MODULUS = 17592186044423
 
 #: 45-bit NTT-friendly prime 2^44 - 16982015; q - 1 = 2147481575 * 2^13.
 NTT_FRIENDLY_MODULUS = 17592169062401
@@ -69,6 +76,14 @@ class Params:
 
     security: SecurityLevel
     profile: Profile
+
+    @property
+    def q(self) -> int:
+        return self.profile.q
+
+    @property
+    def sigma(self) -> float:
+        return self.profile.sigma
 
     def validate(self) -> None:
         p = self.profile

@@ -12,7 +12,8 @@ memory, spills) is kept beside each library as ``lib<name>.log``.
 
 ``LAUNCHES`` counts kernel launches per C entry (the names in
 ``PROTOTYPES``), the shape of the entry's input and a variant (a
-transform's direction and modulus): each wrapper calls ``count`` where it
+transform's direction and modulus, and for the four-step whether a
+``pre`` or ``post`` table rode its passes): each wrapper calls ``count`` where it
 calls an entry, with the number of kernels that entry launches (one per
 pass for ``ntt_four_step``: two up to 2^26 points, three at 2^27; one for
 every other entry, a whole Merkle forest for ``keccak_forest`` and

@@ -325,7 +325,8 @@ def _four_step(plan: NttLargePlan, x, inverse: bool, pre, post, scale: int) -> t
                         len(descs), plan.q)
     kernels.check(rc, "kernel T (four-step NTT)")
     kernels.count("ntt_four_step", len(descs), x.shape,  # one kernel per pass
-                  f"{'inverse' if inverse else 'forward'} mod {plan.q}")
+                  f"{'inverse' if inverse else 'forward'} mod {plan.q}"
+                  + (" pre" if pre is not None else "") + (" post" if post is not None else ""))
     return out
 
 

@@ -70,8 +70,12 @@ class DevForest:
         return len(self.roots)
 
 
-def _forest(levels: List[torch.Tensor]) -> DevForest:
-    roots = [bytes(r) for r in digest_bytes(levels[-1][:, 0])]
+def forest_from_levels(levels: List[torch.Tensor], root_words=None) -> DevForest:
+    """The forest of device ``levels``; its roots are pulled from the root
+    level unless given as (T, 4) uint64 words already on the host."""
+    digests = digest_bytes(levels[-1][:, 0]) if root_words is None else \
+        np.ascontiguousarray(root_words).view(np.uint8)
+    roots = [bytes(r) for r in digests]
     return DevForest(levels=levels, roots=roots, num_leaves=levels[0].shape[1])
 
 
@@ -84,14 +88,20 @@ def commit_planes_dev(values: torch.Tensor) -> DevForest:
     """(T, n) codewords -> T trees; leaf i pairs values (i, i + n/2). One
     launch of kernel K builds every level."""
     _check_size(values.shape[-1])
-    return _forest(keccak.merkle_forest(values))
+    return forest_from_levels(keccak.merkle_forest(values))
+
+
+def group_forest_levels(vals: torch.Tensor) -> List[torch.Tensor]:
+    """(S, K, n) codewords -> every level of S interleaved-group trees, on
+    the device; leaf i holds every oracle's pair (i, i + n/2). One launch
+    of kernel K builds every level."""
+    _check_size(vals.shape[-1])
+    return keccak.merkle_forest_flex(vals)
 
 
 def commit_planes_dev_groups(vals: torch.Tensor) -> DevForest:
-    """(S, K, n) codewords -> S interleaved-group trees; leaf i holds every
-    oracle's pair (i, i + n/2). One launch of kernel K builds every level."""
-    _check_size(vals.shape[-1])
-    return _forest(keccak.merkle_forest_flex(vals))
+    """``group_forest_levels`` with its roots on the host."""
+    return forest_from_levels(group_forest_levels(vals))
 
 
 # --- fold -----------------------------------------------------------------------

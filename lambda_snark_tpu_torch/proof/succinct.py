@@ -1,10 +1,18 @@
 """Succinct R1CS proofs with FRI-bound openings (wire kind 7, v4).
 
-The port's copy of the JAX package's ``proof/succinct.py`` for the non-ZK
-kind 7: the proof container and its bytes, the wire-v4 challenge binding
-(SHA3 of the commitment words, then the circuit digest, then the input
-root), the shared transcript seeding, the prover as the batch of one, and a
-host verifier (``hashlib`` and Python ints, no native library).
+The port's copy of the JAX package's ``proof/succinct.py``: the proof
+container and its bytes, the wire-v4 challenge binding (SHA3 of the
+commitment words, then the circuit digest, then the input root), the shared
+transcript seeding, the prover as the batch of one (plain or
+zero-knowledge), a host verifier (``hashlib`` and Python ints, no native
+library), and the zero-knowledge view of a proof with its simulator
+(``succinct_view``, ``simulate_succinct_view``).
+
+Zero knowledge: with rho_A, rho_B, rho_C uniform of length ``mask_len`` =
+2 num_queries + 8, the committed polynomials are A~ = A + Z_H rho_A, B~ and
+C~ alike, and Q~ = Q + rho_A B + rho_B A + Z_H rho_A rho_B - rho_C, so
+A~ B~ - C~ = Q~ Z_H still holds and any ``mask_len`` codeword positions are
+jointly uniform; the lattice commitment stays on the unmasked Q.
 
 The verifier checks the quotient identity Q(x) Z_H(x) = A(x) B(x) - C(x) at
 the dual Fiat-Shamir challenges and binds every claimed evaluation to its
@@ -24,10 +32,12 @@ import numpy as np
 from ..commit.lwe import Commitment, LweContext
 from ..core import field
 from ..core.errors import DomainError, SerializationError
+from ..device import resolve
 from ..r1cs.domain import ROOTS
 from ..r1cs.r1cs import R1CS
 from ..transcript.challenge import Challenge
 from ..utils.artifacts import circuit_digest
+from ..utils.chacha import ChaCha20Rng
 from .fri import (
     FriParams,
     FriProof,
@@ -42,9 +52,6 @@ from .fri import (
 _MAGIC = b"LSNKTPU1"
 KIND_R1CS_SUCCINCT = 7
 WIRE_VERSION = 4
-
-_ZK_NOT_PORTED = ("zero-knowledge kind 7 (zk=True) is not ported yet "
-                  "(ROADMAP queue A.2); the port proves non-ZK kind 7")
 
 #: Verifier-side cap on the prover-chosen mask length.
 _MASK_LEN_CAP = 4096
@@ -79,6 +86,11 @@ def _next_pow2(n: int) -> int:
     return 1 << (n - 1).bit_length() if n > 1 else 1
 
 
+def zk_mask_len(params: FriParams) -> int:
+    """Zero-knowledge mask length: every queried pair plus alpha and beta."""
+    return 2 * params.num_queries + 8
+
+
 def _degree_bound(m: int, mask_len: int) -> int:
     """Smallest power of two covering every committed polynomial."""
     return _next_pow2(m + 2 * mask_len) if mask_len else _next_pow2(m)
@@ -91,8 +103,7 @@ def _roots_to_words(roots: Sequence[bytes]) -> List[int]:
 @dataclasses.dataclass(frozen=True)
 class SuccinctProofR1CS:
     """R1CS proof with FRI-bound openings (wire kind 7); ``mask_len > 0``
-    marks the zero-knowledge variant, which this package verifies but does
-    not prove."""
+    marks the zero-knowledge variant."""
 
     commitment_q: Commitment
     input_root: bytes
@@ -209,18 +220,29 @@ def prove_r1cs_succinct(r1cs: R1CS, witness: Sequence[int], ctx: LweContext, see
                         zk: bool = False, fri_params: Optional[FriParams] = None,
                         blinding_seed: Optional[int] = None, rng=None,
                         device_lde: bool = False, device="cuda") -> SuccinctProofR1CS:
-    """One non-ZK kind-7 proof: the batch prover on a batch of one (the JAX
+    """One kind-7 proof: the batch prover on a batch of one (the JAX
     package pins the two byte-equal). The parameters are the JAX package's,
-    in its order, then ``device``. ``zk=True`` (with ``blinding_seed`` or
-    ``rng``) raises NotImplementedError: ZK kind 7 is not ported yet.
+    in its order, then ``device``. ``zk=True`` draws the masks from ``rng``,
+    else from ChaCha20 seeded with ``blinding_seed``, else from OS entropy:
+    rho_A, rho_B, rho_C in turn, ``mask_len`` draws ``next_u64() % q`` each.
     ``device_lde`` chooses a route in the JAX package whose bytes are the
     same either way; the port has the one route."""
-    from .succinct_batch import prove_r1cs_succinct_batch
+    from .succinct_batch import _prove_batch
 
+    params = fri_params or FriParams()
+    params.validate()
+    dev = resolve(device)
+    rngs = None
     if zk:
-        raise NotImplementedError(_ZK_NOT_PORTED)
-    return prove_r1cs_succinct_batch(r1cs, [witness], ctx, [seed], fri_params=fri_params,
-                                     device=device)[0]
+        if rng is None:
+            if blinding_seed is not None:
+                rng = ChaCha20Rng.from_u64(blinding_seed)
+            else:
+                import secrets
+
+                rng = ChaCha20Rng(secrets.token_bytes(32))
+        rngs = [rng]
+    return _prove_batch(r1cs, [witness], ctx, [seed], params, rngs, None, dev)[0]
 
 
 def verify_r1cs_succinct(proof: SuccinctProofR1CS, public_inputs: Sequence[int],
@@ -284,3 +306,89 @@ def verify_r1cs_succinct(proof: SuccinctProofR1CS, public_inputs: Sequence[int],
 
     return fri_verify(proof.fri, [(proof.input_root, 4)], g_eval, n0, offset, omega_n, q,
                       params, tr)
+
+
+# --- zero-knowledge view and its simulator -------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class SuccinctView:
+    """What a (possibly simulated) kind-7 proof reveals of its polynomials:
+    the claimed evaluations at alpha and beta and the queried codeword
+    values, (a, b, c, q) value pairs per query."""
+
+    alpha: int
+    beta: int
+    evals: Tuple[int, ...]  # (a, b, c, q) at alpha, then at beta
+    positions: Tuple[int, ...]  # query indices in [0, n0/2)
+    leaves: Tuple[Tuple[Tuple[int, int], ...], ...]  # [query][k] = (lo, hi)
+
+
+def succinct_view(proof: SuccinctProofR1CS, r1cs: R1CS) -> SuccinctView:
+    """The view of a real proof, its query positions replayed from the
+    transcript as the verifier derives them."""
+    params = proof.fri_params
+    d_bound, n0, _omega_n = _check_instance(r1cs, params, proof.mask_len)
+    q = proof.modulus
+    evals = proof._evals()
+    tr = _seed_fri_transcript(q, r1cs.m, proof.mask_len, params, d_bound, [proof.input_root],
+                              proof.challenge_alpha.alpha, proof.challenge_beta.alpha, evals)
+    tr.challenge_field(q, b"fri-lambda")
+    for root in proof.fri.layer_roots:
+        tr.challenge_field(q, b"fri-fold")
+        tr.absorb(b"fri-layer-root", root)
+    tr.challenge_field(q, b"fri-fold")
+    tr.absorb_words(b"fri-final", proof.fri.final_coeffs)
+    indices = tr.challenge_indices(n0 // 2, params.num_queries, b"fri-query")
+    leaves = tuple(
+        tuple((qr.input_openings[0].values[2 * k], qr.input_openings[0].values[2 * k + 1])
+              for k in range(4))
+        for qr in proof.fri.queries)
+    return SuccinctView(alpha=proof.challenge_alpha.alpha, beta=proof.challenge_beta.alpha,
+                        evals=evals, positions=tuple(indices), leaves=leaves)
+
+
+def simulate_succinct_view(r1cs: R1CS, sim_seed: Optional[int] = None,
+                           fri_params: Optional[FriParams] = None) -> SuccinctView:
+    """A view drawn without a witness: alpha, beta and the positions
+    uniform, (a, b, c) uniform at every revealed point and q through
+    q = (a b - c) / Z_H(x), as the masked values of a real ZK proof are
+    distributed. ``sim_seed`` seeds ChaCha20 (OS entropy when None)."""
+    params = fri_params or FriParams()
+    params.validate()
+    q = r1cs.modulus
+    _d_bound, n0, omega_n = _check_instance(r1cs, params, zk_mask_len(params))
+    offset = coset_offset(q)
+    if sim_seed is not None:
+        rng = ChaCha20Rng.from_u64(sim_seed)
+    else:
+        import secrets
+
+        rng = ChaCha20Rng(secrets.token_bytes(32))
+
+    def u() -> int:
+        return rng.next_u64() % q
+
+    def zh(x: int) -> int:
+        return (pow(x, r1cs.m, q) - 1) % q
+
+    def point(x: int) -> Tuple[int, int, int, int]:
+        a, b, c = u(), u(), u()
+        return a, b, c, (a * b - c) % q * field.mod_inverse(zh(x), q) % q
+
+    alpha = u()
+    while not zh(alpha):
+        alpha = u()
+    beta = u()
+    while not zh(beta):
+        beta = u()
+    ev = point(alpha) + point(beta)
+    half = n0 // 2
+    positions = tuple(rng.next_u64() % half for _ in range(params.num_queries))
+    leaves = []
+    for i0 in positions:
+        lo = point(offset * pow(omega_n, i0, q) % q)
+        hi = point(offset * pow(omega_n, i0 + half, q) % q)
+        leaves.append(tuple((lo[k], hi[k]) for k in range(4)))
+    return SuccinctView(alpha=alpha, beta=beta, evals=ev, positions=positions,
+                        leaves=tuple(leaves))

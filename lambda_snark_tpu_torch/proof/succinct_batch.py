@@ -1,20 +1,27 @@
 """Batched kind-7 proving: many FRI-bound proofs per device pass.
 
-The port of the JAX package's ``prove_r1cs_succinct_batch(...,
-device_lde=True)`` on its device front end (``_device_frontend``, non-ZK)
-and its device FRI with host transcripts:
+The port of the JAX package's ``prove_r1cs_succinct_batch`` (its device
+front end and device FRI, with host transcripts), its chunk-pipelined
+prover ``_prove_pipelined`` and its service ``prove_r1cs_succinct_stream``:
 
     host    witnesses -> (S, n) words                      (_embed_and_eval)
-    device  SpMV (R1CS.constraint_evals_batch)
-    device  kernel Q, twist, kernel N (LDE), kernel K (forest), kernel R
+    host    ZK: rho_A, rho_B, rho_C from ChaCha20 per statement (_draw_masks)
+    device  SpMV, kernel Q, ZK masks (kernel T), LDE (kernel T), kernel K
+            (the group forest), kernel R (the commitment)  (succinct_device)
     host    dual challenges over commitment digest, circuit digest, root
     device  A, B, C, Q at alpha and beta                   (eval_device)
     host    FRI transcripts, lambda                        (_seed_batch_transcripts)
     device  DEEP combination, folds, kernel K per layer    (proof.fri_device)
     host    query assembly from one pull
 
+With ``pipeline_chunk`` the batch runs in chunks, one after another.
+Proofs depend only on (witness, seed, blinding seed), so the bytes are the
+unchunked prover's. On an H100 chunking is slower than one batch (each
+chunk repeats the host's fixed part); it bounds the device memory of a
+large batch.
+
 Proof bytes equal the JAX package's for the same (context, circuit,
-witnesses, seeds, parameters).
+witnesses, seeds, blinding seeds, parameters).
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from __future__ import annotations
 from typing import List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from ..commit.lwe import LweContext
 from ..core.errors import DomainError, InvalidDimensionsError
@@ -30,30 +38,37 @@ from ..ops import modarith
 from ..r1cs.domain import ROOTS
 from ..r1cs.r1cs import R1CS
 from ..transcript.challenge import derive_dual
+from ..utils.chacha import ChaCha20Rng
 from . import fri_device
 from .fri import FriParams, coset_offset, root_of_order
 from .succinct import (
-    _ZK_NOT_PORTED,
     SuccinctProofR1CS,
     _check_instance,
     _roots_to_words,
     _seed_fri_transcript,
     statement_binding_words,
+    zk_mask_len,
 )
-from .succinct_device import eval_device, quotient_lde_device
+from .succinct_device import Dispatched, eval_device, finish_quotient_lde, quotient_lde_dispatch
 
-__all__ = ["prove_r1cs_succinct_batch"]
+__all__ = ["prove_r1cs_succinct_batch", "prove_r1cs_succinct_stream"]
+
+#: the seed-fold constant shared with ``prover_batched.prove_r1cs_stream``
+_SEED_FOLD = 0x9E3779B97F4A7C15
+#: salt separating the default blinding-seed stream from the proof seeds
+_BLIND_SALT = 0xA5A5A5A55A5A5A5A
 
 
 def _check_circuit(r1cs: R1CS) -> None:
     """The port proves kind 7 over Goldilocks roots-domain circuits (the JAX
-    package's vectorised front end); other fields are not ported."""
+    package's vectorised front end); the other fields' routes are ROADMAP
+    A.3b."""
     m = r1cs.m
     if (r1cs.modulus != modarith.GOLDILOCKS or r1cs.domain.kind != ROOTS
             or m < 2 or m & (m - 1)
             or root_of_order(r1cs.modulus, m) != r1cs.domain.omega % r1cs.modulus):
         raise DomainError("the port proves kind 7 over Goldilocks circuits with the "
-                          "power-of-two roots domain only")
+                          "power-of-two roots domain only (other fields: ROADMAP A.3b)")
 
 
 def _embed(r1cs: R1CS, witnesses) -> np.ndarray:
@@ -88,6 +103,16 @@ def _embed_and_eval(r1cs: R1CS, witnesses, device):
     return r1cs.constraint_evals_batch(w)
 
 
+def _draw_masks(rngs, mask_len: int, q: int) -> np.ndarray:
+    """(3, S, L) uint64: per statement's generator, rho_A, rho_B, rho_C of
+    ``mask_len`` draws ``next_u64() % q`` each, in that order."""
+    masks = np.empty((3, len(rngs), mask_len), dtype=np.uint64)
+    for i, rng in enumerate(rngs):
+        for k in range(3):
+            masks[k, i] = [rng.next_u64() % q for _ in range(mask_len)]
+    return masks
+
+
 def _derive_batch_challenges(r1cs: R1CS, witnesses, commitments, roots, q: int):
     """Per statement, the dual challenges over commitment digest, circuit
     digest and input root (wire v4)."""
@@ -112,20 +137,72 @@ def _seed_batch_transcripts(q, m, mask_len, params, d_bound, roots, alphas, beta
     return trs, lams
 
 
-def _device_frontend(r1cs, witnesses, ctx, seeds, params, device):
-    """Constraint evaluations, quotient, LDE, forest, commitments, challenges
-    and claimed evaluations for the whole batch."""
-    q, m = r1cs.modulus, r1cs.m
-    d_bound, n0, omega_n = _check_instance(r1cs, params, 0)
-    offset = coset_offset(q)
-    az, bz, cz = _embed_and_eval(r1cs, witnesses, device)
-    lde, commitments, polys, forest = quotient_lde_device(az, bz, cz, n0, offset, ctx, seeds)
-    chals, alphas, betas = _derive_batch_challenges(r1cs, witnesses, commitments,
-                                                    forest.roots, q)
-    evals = eval_device(polys, alphas, betas)
-    return dict(d_bound=d_bound, n0=n0, omega_n=omega_n, offset=offset, lde=lde,
-                commitments=commitments, forest=forest, chals=chals, alphas=alphas,
-                betas=betas, evals=evals)
+class _Geometry:
+    """The shapes shared by every chunk of one batch."""
+
+    def __init__(self, r1cs: R1CS, params: FriParams, mask_len: int) -> None:
+        self.q, self.m, self.mask_len, self.params = r1cs.modulus, r1cs.m, mask_len, params
+        self.d_bound, self.n0, self.omega_n = _check_instance(r1cs, params, mask_len)
+        self.offset = coset_offset(self.q)
+
+
+def _back_end(r1cs: R1CS, witnesses, d: Dispatched, first: int, geo: _Geometry
+              ) -> List[SuccinctProofR1CS]:
+    """A chunk's challenges, evaluations, transcripts, DEEP and FRI, and
+    its proofs assembled from one pull of the query openings."""
+    q, params = geo.q, geo.params
+    commitments, forest = finish_quotient_lde(d, first)
+    chals, alphas, betas = _derive_batch_challenges(r1cs, witnesses, commitments, forest.roots,
+                                                    q)
+    evals = eval_device(d.polys, alphas, betas)
+    trs, lams = _seed_batch_transcripts(q, geo.m, geo.mask_len, params, geo.d_bound,
+                                        forest.roots, alphas, betas, evals)
+    g = fri_device.deep_combine_device(d.lde, alphas, betas, lams, evals, geo.offset,
+                                       geo.omega_n)
+    committed, finals, idx = fri_device.fri_commit_layers(g, geo.offset, geo.omega_n, q,
+                                                          params, trs)
+    fri_proofs = fri_device.fri_open(d.lde, forest, committed, finals, idx)
+    return [
+        SuccinctProofR1CS(
+            commitments[i], forest.roots[i], *chals[i], *(int(v) for v in evals[i]),
+            fri=fri_proofs[i], m=geo.m, mask_len=geo.mask_len,
+            log_blowup=params.log_blowup, num_queries=params.num_queries,
+            final_len=params.final_len, modulus=q)
+        for i in range(len(witnesses))
+    ]
+
+
+def _prove_chunks(r1cs: R1CS, witnesses, ctx: LweContext, seeds, params: FriParams,
+                  masks: Optional[np.ndarray], chunk: int, dev: torch.device
+                  ) -> List[SuccinctProofR1CS]:
+    """Prove the batch in chunks of ``chunk`` statements (one chunk: the
+    unchunked prover), one after another."""
+    geo = _Geometry(r1cs, params, 0 if masks is None else masks.shape[2])
+    proofs: List[SuccinctProofR1CS] = []
+    for start in range(0, len(witnesses), chunk):
+        sl = slice(start, min(start + chunk, len(witnesses)))
+        d = quotient_lde_dispatch(*_embed_and_eval(r1cs, witnesses[sl], dev), geo.n0,
+                                  geo.offset, ctx, list(seeds[sl]),
+                                  None if masks is None else masks[:, sl])
+        proofs += _back_end(r1cs, witnesses[sl], d, start, geo)
+    return proofs
+
+
+def _prove_batch(r1cs: R1CS, witnesses, ctx: LweContext, seeds, params: FriParams,
+                 mask_rngs, pipeline_chunk: Optional[int], dev: torch.device
+                 ) -> List[SuccinctProofR1CS]:
+    """Kind-7 proofs of a batch; ``mask_rngs`` (one generator per
+    statement) makes them zero-knowledge."""
+    if len(witnesses) == 0:
+        return []
+    _check_circuit(r1cs)
+    zk = mask_rngs is not None
+    masks = _draw_masks(mask_rngs, zk_mask_len(params), r1cs.modulus) if zk else None
+    s = len(witnesses)
+    chunk = s
+    if pipeline_chunk and not zk and ctx.n >= r1cs.m and s > pipeline_chunk:
+        chunk = pipeline_chunk
+    return _prove_chunks(r1cs, witnesses, ctx, seeds, params, masks, chunk, dev)
 
 
 def prove_r1cs_succinct_batch(r1cs: R1CS, witnesses: Sequence[Sequence[int]],
@@ -134,40 +211,92 @@ def prove_r1cs_succinct_batch(r1cs: R1CS, witnesses: Sequence[Sequence[int]],
                               blinding_seeds: Optional[Sequence[int]] = None,
                               device_lde: bool = True, pipeline_chunk: Optional[int] = None,
                               device="cuda") -> List[SuccinctProofR1CS]:
-    """Non-ZK kind-7 proofs for a batch of witnesses of one circuit, one
-    commit seed each; byte-identical to the JAX package's
+    """Kind-7 proofs for a batch of witnesses of one circuit, one commit
+    seed each; byte-identical to the JAX package's
     ``prove_r1cs_succinct_batch`` and ``prove_r1cs_succinct``. Runs on the
     card unless ``device="cpu"`` (every kernel as its plain twin).
 
     The parameters are the JAX package's, in its order, then ``device``.
-    ``zk=True`` raises NotImplementedError (ZK kind 7 is ROADMAP queue A.2).
-    ``device_lde`` and ``pipeline_chunk`` choose routes in the JAX package
-    that give the same bytes; the port proves the whole batch on its one
-    device route."""
+    ``zk=True`` needs one blinding seed per witness: statement i's masks
+    come from ChaCha20 seeded with ``blinding_seeds[i]``. ``pipeline_chunk``
+    proves a non-ZK batch longer than it in chunks of that many statements
+    (the same bytes; slower than one batch on an H100, with less device
+    memory); ``device_lde`` chooses
+    between JAX routes with the same bytes and is ignored."""
     params = fri_params or FriParams()
     params.validate()
     if len(seeds) != len(witnesses):
         raise InvalidDimensionsError("need one seed per witness")
-    if zk:
-        raise NotImplementedError(_ZK_NOT_PORTED)
+    if zk and (blinding_seeds is None or len(blinding_seeds) != len(witnesses)):
+        raise InvalidDimensionsError("zk batch proving needs one blinding seed per witness")
     dev = resolve(device)
-    if len(witnesses) == 0:
-        return []
-    _check_circuit(r1cs)
-    q, m = r1cs.modulus, r1cs.m
-    fe = _device_frontend(r1cs, witnesses, ctx, seeds, params, dev)
-    trs, lams = _seed_batch_transcripts(q, m, 0, params, fe["d_bound"], fe["forest"].roots,
-                                        fe["alphas"], fe["betas"], fe["evals"])
-    g = fri_device.deep_combine_device(fe["lde"], fe["alphas"], fe["betas"], lams,
-                                       fe["evals"], fe["offset"], fe["omega_n"])
-    fri_proofs = fri_device.fri_prove_device(g, fe["lde"], fe["forest"], fe["offset"],
-                                             fe["omega_n"], q, params, trs)
-    evals = fe["evals"]
-    return [
-        SuccinctProofR1CS(
-            fe["commitments"][i], fe["forest"].roots[i], *fe["chals"][i],
-            *(int(v) for v in evals[i]), fri=fri_proofs[i], m=m, mask_len=0,
-            log_blowup=params.log_blowup, num_queries=params.num_queries,
-            final_len=params.final_len, modulus=q)
-        for i in range(len(witnesses))
-    ]
+    rngs = [ChaCha20Rng.from_u64(b) for b in blinding_seeds] if zk else None
+    return _prove_batch(r1cs, witnesses, ctx, seeds, params, rngs, pipeline_chunk, dev)
+
+
+def _index_seed(master: int, index: int) -> int:
+    """Statement ``index``'s seed: the same for any partition of the stream."""
+    return (master ^ (_SEED_FOLD * (index + 1))) & ((1 << 63) - 1)
+
+
+def prove_r1cs_succinct_stream(r1cs: R1CS, witnesses, ctx: LweContext, seed: int,
+                               batch: int = 8, zk: bool = False,
+                               fri_params: Optional[FriParams] = None,
+                               blinding_seed: Optional[int] = None, store=None,
+                               device_lde: bool = True, label_prefix: str = "succinct",
+                               pipeline_chunk: Optional[int] = None,
+                               witness_bind: bool = False, device="cuda"):
+    """Yield ``(index, SuccinctProofR1CS)`` for a witness stream, in order,
+    proved in batches of ``batch`` (``prove_r1cs_succinct_batch``).
+
+    Statement i's seed is ``_index_seed(seed, i)`` and, under ZK, its
+    blinding seed ``_index_seed(b, i)`` with b = ``blinding_seed`` or
+    ``seed ^ _BLIND_SALT``, so any partition of the stream gives the same
+    bytes. With ``store`` (a ``ProofStore``) each proof is saved under the
+    label ``"{label_prefix}-{index}"`` as it is yielded, and a statement
+    the store holds is served from it, byte-identical, so a cut run resumes.
+    ``witness_bind=True`` (kind 9) is not ported (ROADMAP A.4)."""
+    if witness_bind:
+        raise NotImplementedError("the committed-witness stream (witness_bind=True, kind 9) "
+                                  "is not ported yet (ROADMAP A.4)")
+    params = fri_params or FriParams()
+    params.validate()
+    dev = resolve(device)
+    return _stream(r1cs, witnesses, ctx, seed, batch, zk, params, blinding_seed, store,
+                   label_prefix, pipeline_chunk, dev)
+
+
+def _stream(r1cs, witnesses, ctx, seed, batch, zk, params, blinding_seed, store,
+            label_prefix, pipeline_chunk, dev):
+    from ..utils.artifacts import statement_digest
+
+    blind_master = blinding_seed if blinding_seed is not None else seed ^ _BLIND_SALT
+    pending: list = []  # (index, witness)
+
+    def flush():
+        if not pending:
+            return
+        idxs = [i for i, _w in pending]
+        seeds = [_index_seed(seed, i) for i in idxs]
+        blinds = [_index_seed(blind_master, i) for i in idxs] if zk else None
+        proofs = prove_r1cs_succinct_batch(r1cs, [w for _i, w in pending], ctx, seeds, zk=zk,
+                                           fri_params=params, blinding_seeds=blinds,
+                                           pipeline_chunk=pipeline_chunk, device=dev)
+        for (index, w), proof, s in zip(pending, proofs, seeds):
+            if store is not None:
+                store.save(r1cs, r1cs.public_inputs(w), s, proof, label=f"{label_prefix}-{index}")
+            yield index, proof
+        pending.clear()
+
+    for index, w in enumerate(witnesses):
+        if store is not None:
+            key = statement_digest(r1cs, r1cs.public_inputs(w), _index_seed(seed, index),
+                                   f"{label_prefix}-{index}")
+            if store.contains(key):
+                yield from flush()
+                yield index, store.load(key)
+                continue
+        pending.append((index, w))
+        if len(pending) == batch:
+            yield from flush()
+    yield from flush()

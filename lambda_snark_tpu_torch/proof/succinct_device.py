@@ -1,24 +1,33 @@
 """The device front end of batched kind-7 proving (Goldilocks).
 
 The counterpart of the JAX package's ``proof/succinct_device.py``
-(``quotient_lde_device`` with the fused commitment, ``eval_device``):
+(``quotient_lde_device`` with the fused commitment, its ``defer_pull`` /
+``finish_quotient_lde`` split, ``eval_device``) and of the zero-knowledge
+masks of its ``succinct_batch._gl_batch_frontend``:
 
     (az, bz, cz) (S, m) constraint evaluations
       -> kernel Q: A, B, C interpolated, Q = (A B - C) / Z_H   (ops.quotient)
-      -> pad to n0, twist by offset^i                          (torch ops)
-      -> kernel N: the LDE on offset <omega_n0>                (ops.ntt_large)
+      -> ZK: A~ = A + Z_H rho_A, B~ and C~ alike, and
+         Q~ = Q + rho_A B + rho_B A + Z_H rho_A rho_B - rho_C, whose
+         products are exact convolutions on kernel T at the next power of
+         two (one forward launch for every factor, one inverse for the sum)
+      -> pad to n0; kernel T: the LDE on offset <omega_n0>, the offset^i
+         twist folded into its first pass                (ops.ntt_large)
       -> kernel K: one interleaved-group Merkle tree per statement
-      -> ChaCha20 draws (torch ops), kernel R: the commitment to Q
+      -> ChaCha20 draws (torch ops), kernel R: the commitment to the
+         unmasked Q                                      (commit.lwe_device)
 
-The codewords, polynomials and trees stay on the device; the host gets the
-commitment words and the roots. ``eval_device`` evaluates A, B, C, Q at the
-dual challenges without pulling the polynomials.
+``quotient_lde_dispatch`` enqueues all of it on the current stream;
+``finish_quotient_lde`` pulls the validity flags, the commitment words and
+the roots in one transfer. The
+codewords, polynomials and trees stay on the device. ``eval_device``
+evaluates A, B, C, Q at the dual challenges without pulling them.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,11 +36,13 @@ from ..commit.lwe import Commitment, LweContext
 from ..commit.lwe_device import DeviceCommitContext, commit_batch_chacha
 from ..core.errors import DomainError, InvalidWitnessError
 from ..ops import modarith
-from ..ops.ntt_large import NttLargePlan, ntt_forward_large
+from ..ops.ntt import NttPlan
+from ..ops.ntt_batched import ntt_forward_batched, ntt_inverse_batched
+from ..ops.ntt_large import NttLargePlan, ntt_forward_large, power_table
 from ..ops.quotient import QuotientPlan, quotient
 from ..pipeline import field_psi_for
-from .fri import _gl_powers, root_of_order
-from .fri_device import DevForest, commit_planes_dev_groups
+from .fri import root_of_order
+from .fri_device import DevForest, forest_from_levels, group_forest_levels
 
 P = modarith.GOLDILOCKS
 
@@ -44,7 +55,7 @@ class FrontendPlan:
     n0: int
     qplan: QuotientPlan
     lde: NttLargePlan
-    twist: torch.Tensor  # (m,) offset^i: only the first m coefficients are nonzero
+    twist: torch.Tensor  # (n0,) offset^i, the LDE's pre-table
 
     @staticmethod
     def create(m: int, n0: int, offset: int, device) -> "FrontendPlan":
@@ -52,7 +63,7 @@ class FrontendPlan:
             m=m, n0=n0,
             qplan=QuotientPlan.create(m, P, field_psi_for(m, P), device=device),
             lde=NttLargePlan.create(n0, root_of_order(P, n0), device=device),
-            twist=modarith.to_words(_gl_powers(offset, m), device),
+            twist=power_table(offset, n0, P, device),
         )
 
 
@@ -76,44 +87,142 @@ def device_commit_context(ctx: LweContext, device) -> DeviceCommitContext:
     return _COMMIT_CTX[key][1]
 
 
-def commit_quotients(ctx: LweContext, q_poly: torch.Tensor, seeds) -> List[Commitment]:
-    """Module-LWE commitments to the quotients (S, m), m <= n, one seed
-    each: the quotient enters the ring as it is (the JAX fused commit)."""
-    dctx = device_commit_context(ctx, q_poly.device)
-    words = modarith.to_u64(commit_batch_chacha(dctx, q_poly.contiguous(), ctx, seeds))
-    return [Commitment(words[i].copy()) for i in range(words.shape[0])]
+# --- zero-knowledge masks ---------------------------------------------------------
+
+_CONV_PLANS: dict = {}
 
 
-def quotient_lde_device(az: torch.Tensor, bz: torch.Tensor, cz: torch.Tensor, n0: int,
-                        offset: int, ctx: LweContext, seeds
-                        ) -> Tuple[torch.Tensor, List[Commitment], torch.Tensor, DevForest]:
-    """(S, m) constraint evaluations -> (LDE codewords (S, 4, n0), commitments,
-    polynomials (S, 4, m) in the order A, B, C, Q, the group forest).
+def _conv_plan(n: int, device) -> NttPlan:
+    key = (n, str(device))
+    if key not in _CONV_PLANS:
+        _CONV_PLANS[key] = NttPlan.create(n, P, root_of_order(P, n), device=device)
+    return _CONV_PLANS[key]
 
-    Raises InvalidWitnessError if some a_t b_t != c_t (kernel Q's flags),
-    and DomainError if the ring degree n is below m: the JAX package takes
-    its device front end only for n >= m, and its host route for n < m is
-    not ported."""
+
+def _pad(x: torch.Tensor, width: int) -> torch.Tensor:
+    out = torch.zeros(x.shape[:-1] + (width,), dtype=torch.int64, device=x.device)
+    out[..., : x.shape[-1]] = x
+    return out
+
+
+def _zh_mul(rho: torch.Tensor, m: int) -> torch.Tensor:
+    """(X^m - 1) rho over the rows: (S, L) -> (S, m + L)."""
+    length = rho.shape[1]
+    out = _pad(rho.new_zeros((rho.shape[0], m)), m + length)
+    out[:, m:] = rho
+    out[:, :length] = modarith.sub_mod(out[:, :length], rho, P)
+    return out
+
+
+def _sum_of_products(xs: List[torch.Tensor], ys: List[torch.Tensor],
+                     out_len: int) -> torch.Tensor:
+    """sum_i x_i y_i as exact polynomial products of rows, (S, out_len):
+    cyclic convolutions at the next power of two >= out_len, every factor
+    in one forward launch of kernel T and the sum in one inverse."""
+    n = max(2, 1 << (out_len - 1).bit_length())
+    plan = _conv_plan(n, xs[0].device)
+    s, k = xs[0].shape[0], len(xs)
+    buf = torch.zeros((2 * k * s, n), dtype=torch.int64, device=xs[0].device)
+    for i, t in enumerate(xs + ys):
+        buf[i * s: (i + 1) * s, : t.shape[1]] = t
+    f = ntt_forward_batched(plan, buf).reshape(2 * k, s, n)
+    acc = modarith.mul_mod(f[0], f[k], P)
+    for i in range(1, k):
+        acc = modarith.add_mod(acc, modarith.mul_mod(f[i], f[k + i], P), P)
+    return ntt_inverse_batched(plan, acc.contiguous())[:, :out_len]
+
+
+def mask_polys(q_poly, a_poly, b_poly, c_poly, rho: torch.Tensor) -> torch.Tensor:
+    """The masked polynomials (S, 4, m + 2L) in the order A~, B~, C~, Q~
+    for masks rho (3, S, L) = (rho_A, rho_B, rho_C), each zero-padded to
+    the longest, Q~'s."""
+    m, length = a_poly.shape[1], rho.shape[2]
+    rho_a, rho_b, rho_c = rho
+    width = m + 2 * length
+    masked = [_pad(modarith.add_mod(_pad(p, m + length), _zh_mul(r, m), P), width)
+              for p, r in ((a_poly, rho_a), (b_poly, rho_b), (c_poly, rho_c))]
+    cross = _sum_of_products([rho_a, rho_b], [b_poly, a_poly], m + length - 1)
+    rho_ab = _sum_of_products([rho_a], [rho_b], 2 * length - 1)
+    q_t = modarith.add_mod(_pad(q_poly, width), _pad(cross, width), P)
+    q_t = modarith.add_mod(q_t, _pad(_zh_mul(rho_ab, m), width), P)
+    q_t = modarith.sub_mod(q_t, _pad(rho_c, width), P)
+    return torch.stack(masked + [q_t], dim=1)
+
+
+# --- the front end ----------------------------------------------------------------
+
+
+@dataclasses.dataclass(eq=False)
+class Dispatched:
+    """A front end enqueued on the device and not pulled yet."""
+
+    lde: torch.Tensor  # (S, 4, n0) codewords
+    polys: torch.Tensor  # (S, 4, width) A, B, C, Q (masked under ZK)
+    levels: List[torch.Tensor]  # the group forest, leaf level first
+    valid: torch.Tensor  # (S,) bool, kernel Q's a b = c flags
+    commitment: torch.Tensor  # (S, n) words of the commitments to Q
+
+
+def quotient_lde_dispatch(az: torch.Tensor, bz: torch.Tensor, cz: torch.Tensor, n0: int,
+                          offset: int, ctx: LweContext, seeds,
+                          masks: Optional[np.ndarray] = None) -> Dispatched:
+    """Enqueue the front end of (S, m) constraint evaluations on the
+    current stream. ``masks`` (3, S, L) uint64 (rho_A, rho_B, rho_C) makes
+    it the zero-knowledge front end; the commitment is to the unmasked Q
+    either way.
+
+    Raises DomainError if the ring degree n is below m: the JAX package
+    takes its device front end only for n >= m, and its host route for
+    n < m is not ported (ROADMAP A.3b)."""
     s, m = az.shape
     if ctx.n < m:
-        raise DomainError(f"ring degree {ctx.n} < m = {m}: the device front end "
-                          f"commits to the whole quotient in one ring element")
-    plan = frontend_plan(m, n0, offset, az.device)
+        raise DomainError(f"ring degree {ctx.n} < m = {m}: the device front end commits to "
+                          "the whole quotient in one ring element (n < m is ROADMAP A.3b)")
+    dev = az.device
+    plan = frontend_plan(m, n0, offset, dev)
     q_poly, a_poly, b_poly, c_poly, valid = quotient(plan.qplan, az, bz, cz)
-    if not bool(valid.all()):
-        bad = int(torch.nonzero(~valid)[0, 0])
+    if masks is None:
+        polys = torch.stack([a_poly, b_poly, c_poly, q_poly], dim=1)
+    else:
+        rho = torch.from_numpy(np.ascontiguousarray(masks).view(np.int64)).to(dev)
+        polys = mask_polys(q_poly, a_poly, b_poly, c_poly, rho)
+    padded = _pad(polys, n0)
+    lde = ntt_forward_large(plan.lde, padded.reshape(4 * s, n0),
+                            pre=plan.twist).reshape(s, 4, n0)
+    levels = group_forest_levels(lde)
+    commitment = commit_batch_chacha(device_commit_context(ctx, dev), q_poly, ctx, seeds)
+    return Dispatched(lde=lde, polys=polys, levels=levels, valid=valid, commitment=commitment)
+
+
+def finish_quotient_lde(d: Dispatched, first: int = 0) -> Tuple[List[Commitment], DevForest]:
+    """Pull a dispatched front end's flags, commitment words and roots in
+    one transfer: (commitments, the group forest). Raises
+    InvalidWitnessError if some a_t b_t != c_t, naming the witness by its
+    index plus ``first``."""
+    s, n = d.commitment.shape
+    pack = modarith.to_u64(torch.cat([d.valid.to(torch.int64), d.commitment.reshape(-1),
+                                      d.levels[-1][:, 0].reshape(-1)]))
+    valid, words = pack[:s], pack[s: s + s * n].reshape(s, n)
+    if not valid.all():
+        bad = first + int(np.flatnonzero(valid == 0)[0])
         raise InvalidWitnessError(f"witness {bad} does not satisfy R1CS constraints")
-    polys = torch.stack([a_poly, b_poly, c_poly, q_poly], dim=1)  # (S, 4, m)
-    padded = torch.zeros((s, 4, n0), dtype=torch.int64, device=az.device)
-    padded[..., :m] = modarith.mul_mod(polys, plan.twist, P)
-    lde = ntt_forward_large(plan.lde, padded.reshape(4 * s, n0)).reshape(s, 4, n0)
-    forest = commit_planes_dev_groups(lde)
-    commitments = commit_quotients(ctx, q_poly, seeds)
-    return lde, commitments, polys, forest
+    forest = forest_from_levels(d.levels, root_words=pack[s + s * n:].reshape(s, 4))
+    return [Commitment(words[i].copy()) for i in range(s)], forest
+
+
+def quotient_lde_device(az, bz, cz, n0: int, offset: int, ctx: LweContext, seeds,
+                        masks: Optional[np.ndarray] = None
+                        ) -> Tuple[torch.Tensor, List[Commitment], torch.Tensor, DevForest]:
+    """The front end, dispatched and pulled: (LDE codewords (S, 4, n0),
+    commitments, polynomials (S, 4, width) in the order A, B, C, Q, the
+    group forest)."""
+    d = quotient_lde_dispatch(az, bz, cz, n0, offset, ctx, seeds, masks)
+    commitments, forest = finish_quotient_lde(d)
+    return d.lde, commitments, d.polys, forest
 
 
 def eval_device(polys: torch.Tensor, alphas: np.ndarray, betas: np.ndarray) -> np.ndarray:
-    """A, B, C, Q (S, 4, m) at the dual challenges: (S, 8) uint64 in the
+    """A, B, C, Q (S, 4, width) at the dual challenges: (S, 8) uint64 in the
     wire order (A, B, C, Q at alpha, then at beta)."""
     s, k, m = polys.shape
     pts = modarith.to_words(np.stack([alphas, betas], axis=1).astype(np.uint64),

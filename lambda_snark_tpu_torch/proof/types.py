@@ -1,12 +1,12 @@
-"""R1CS proof containers and their wire bytes, both ways (the port's copy
-of ``ProofR1CS``, ``ProofR1csZk``, ``EvalOpening`` and ``deserialize_any``
-from the JAX package's ``proof/types.py``).
+"""Proof containers and their wire bytes, both ways (the port's copy of
+``Proof``, ``ProofR1CS``, ``ProofR1csZk``, ``EvalOpening`` and
+``deserialize_any`` from the JAX package's ``proof/types.py``).
 
     magic "LSNKTPU1" | kind u8 | modulus u64 | body
 
-Kinds 2 (plain, v1 transcript), 6 (plain, v3 transcript bound to the
-circuit digest) and 3 (ZK) live here; kind 7 is ``proof.succinct``. The JAX
-package and the port read each other's bytes.
+Kinds 1 (simple), 2 (R1CS, v1 transcript), 6 (R1CS, v3 transcript bound to
+the circuit digest) and 3 (R1CS, ZK) live here; kind 7 is
+``proof.succinct``. The JAX package and the port read each other's bytes.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from ..core.errors import SerializationError
 from ..transcript.challenge import Challenge
 
 _MAGIC = b"LSNKTPU1"
+_KIND_SIMPLE = 1
 _KIND_R1CS = 2
 _KIND_R1CS_ZK = 3
 _KIND_R1CS_V3 = 6  # the v1 body, circuit-digest-bound transcript
@@ -30,9 +31,8 @@ _KIND_SUCCINCT = 7
 #: Kinds the JAX package decodes and the port does not yet, with the
 #: ROADMAP queue item that ports them.
 _NOT_PORTED = {
-    1: "simple proofs (ROADMAP A.3, prover.prove_simple)",
-    4: "compact proofs (ROADMAP A.3, proof/compact.py)",
-    5: "compact ZK proofs (ROADMAP A.3, proof/compact.py)",
+    4: "compact proofs (ROADMAP A.3b, proof/compact.py)",
+    5: "compact ZK proofs (ROADMAP A.3b, proof/compact.py)",
     8: "aggregated proofs (ROADMAP A.4, proof/aggregate.py)",
     9: "committed-witness proofs (ROADMAP A.4, proof/succinct_witness.py)",
 }
@@ -92,7 +92,9 @@ def _header(data: bytes, kinds) -> _Reader:
 
 @dataclasses.dataclass(frozen=True)
 class EvalOpening:
-    """Evaluation opening y = f(alpha) plus witness words (empty here)."""
+    """Evaluation opening y = f(alpha) plus witness words: [randomness,
+    f's coefficients...] for the simple proofs and the R1CS proofs with an
+    opening, empty for the stub openings."""
 
     evaluation: int
     witness: List[int] = dataclasses.field(default_factory=list)
@@ -104,6 +106,27 @@ class EvalOpening:
     def read(r: _Reader) -> "EvalOpening":
         ev = r.u64()
         return EvalOpening(evaluation=ev, witness=r.words())
+
+
+@dataclasses.dataclass(frozen=True)
+class Proof:
+    """Simple proof: commitment, challenge, opening (kind 1)."""
+
+    commitment: Commitment
+    challenge: Challenge
+    opening: EvalOpening
+    modulus: int
+
+    def to_bytes(self) -> bytes:
+        body = (struct.pack("<Q", len(self.commitment.words)) + self.commitment.to_bytes()
+                + self.challenge.to_bytes() + self.opening.to_bytes())
+        return _MAGIC + bytes([_KIND_SIMPLE]) + struct.pack("<Q", self.modulus) + body
+
+    @staticmethod
+    def from_bytes(data: bytes) -> "Proof":
+        r = _header(data, (_KIND_SIMPLE,))
+        modulus = r.u64()
+        return Proof(r.commitment(), r.challenge(), EvalOpening.read(r), modulus)
 
 
 def _body(commitment: Commitment, evals, ch_a: Challenge, ch_b: Challenge,
@@ -197,13 +220,15 @@ class ProofR1csZk:
 
 
 def deserialize_any(data: bytes):
-    """Decode proof bytes by their kind byte: 2, 3, 6 and 7. The kinds the
+    """Decode proof bytes by their kind byte: 1, 2, 3, 6 and 7. The kinds the
     port does not decode yet raise SerializationError naming the queue item
     that ports them; bad magic and unknown kinds raise as in the JAX
     package."""
     if len(data) < 9 or data[:8] != _MAGIC:
         raise SerializationError("bad proof magic")
     kind = data[8]
+    if kind == _KIND_SIMPLE:
+        return Proof.from_bytes(data)
     if kind in (_KIND_R1CS, _KIND_R1CS_V3):
         return ProofR1CS.from_bytes(data)
     if kind == _KIND_R1CS_ZK:

@@ -3,13 +3,13 @@
 ``Domain.select`` picks the roots domain H = {w^i} with Z_H = X^m - 1 for
 the Goldilocks modulus and for the 44-bit field with m in the root table;
 any other (q, m) gets the sequential domain {0..m-1}, which the batched
-prover rejects and the verifiers take.
+provers reject and the host provers (``prover``) and the verifiers take.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import List, Optional
 
 from ..core import field
 from ..core.errors import DomainError
@@ -50,6 +50,32 @@ class Domain:
         if modulus == NTT_FRIENDLY_MODULUS and m in ROOTS_OF_UNITY_45BIT:
             return Domain.roots(m, modulus, ROOTS_OF_UNITY_45BIT[m])
         return Domain.sequential(m, modulus)
+
+    def points(self) -> List[int]:
+        """The m domain points, in order."""
+        q = self.modulus
+        if self.kind == SEQUENTIAL:
+            return [i % q for i in range(self.m)]
+        pts = [1]
+        for _ in range(1, self.m):
+            pts.append(field.mul_mod(pts[-1], self.omega, q))
+        return pts
+
+    def vanishing_poly(self) -> List[int]:
+        """Coefficients of Z_H: X^m - 1 on a roots domain, prod_i (X - i)
+        on the sequential one."""
+        q = self.modulus
+        if self.kind == ROOTS:
+            return [q - 1] + [0] * (self.m - 1) + [1]
+        poly = [1]
+        for i in range(self.m):
+            a = i % q
+            out = [0] * (len(poly) + 1)
+            for j, c in enumerate(poly):  # poly * (X - a)
+                out[j + 1] = field.add_mod(out[j + 1], c, q)
+                out[j] = field.sub_mod(out[j], field.mul_mod(a, c, q), q)
+            poly = out
+        return poly
 
     def eval_vanishing(self, x: int) -> int:
         """Z_H(x): x^m - 1 on a roots domain, prod_i (x - i) on the

@@ -1,14 +1,19 @@
 """ChaCha20 generator with bit-parity to Rust's ``rand_chacha::ChaCha20Rng``.
 
-The port's copy of the scalar part of ``utils/chacha.py``: ``seed_from_u64``
-(rand_core 0.6's PCG32 seed expansion) and the DJB-variant block function,
-with ``next_u64`` = two keystream words, low first. ZK blinding factors are
-drawn from it (``prover_batched``).
+The port's copy of the host part of ``utils/chacha.py``: ``seed_from_u64``
+(rand_core 0.6's PCG32 seed expansion), the DJB-variant block function, its
+numpy form over consecutive counters, and the generator, with
+``next_u64`` = two keystream words, low first, and ``fill_u64`` the same
+draws vectorised. ZK blinding factors and masks (``prover_batched``,
+``proof.succinct_batch``) and the host Gaussian sampler (``ops.gaussian``)
+draw from it.
 """
 
 from __future__ import annotations
 
 from typing import List
+
+import numpy as np
 
 M32 = 0xFFFFFFFF
 M64 = 0xFFFFFFFFFFFFFFFF
@@ -66,6 +71,49 @@ def chacha20_block(key_words: List[int], counter: int, nonce_words: List[int]) -
     return [(xi + si) & M32 for xi, si in zip(x, state)]
 
 
+def _quarter_np(x, a: int, b: int, c: int, d: int) -> None:
+    """A quarter round on state rows of ``x`` (uint32, in place)."""
+    x[a] += x[b]
+    x[d] ^= x[a]
+    x[d] = (x[d] << np.uint32(16)) | (x[d] >> np.uint32(16))
+    x[c] += x[d]
+    x[b] ^= x[c]
+    x[b] = (x[b] << np.uint32(12)) | (x[b] >> np.uint32(20))
+    x[a] += x[b]
+    x[d] ^= x[a]
+    x[d] = (x[d] << np.uint32(8)) | (x[d] >> np.uint32(24))
+    x[c] += x[d]
+    x[b] ^= x[c]
+    x[b] = (x[b] << np.uint32(7)) | (x[b] >> np.uint32(25))
+
+
+def chacha20_blocks_np(key_words: List[int], counter: int, nonce_words: List[int],
+                       nblocks: int) -> np.ndarray:
+    """``nblocks`` consecutive blocks as uint32 (nblocks, 16): row b is
+    ``chacha20_block(key, counter + b, nonce)`` word for word."""
+    ctrs = np.arange(nblocks, dtype=np.uint64) + np.uint64(counter)
+    state = np.empty((16, nblocks), dtype=np.uint32)
+    state[0], state[1], state[2], state[3] = 0x61707865, 0x3320646E, 0x79622D32, 0x6B206574
+    for i, k in enumerate(key_words):
+        state[4 + i] = k
+    state[12] = (ctrs & np.uint64(M32)).astype(np.uint32)
+    state[13] = (ctrs >> np.uint64(32)).astype(np.uint32)
+    state[14], state[15] = nonce_words[0], nonce_words[1]
+    x = state.copy()
+    with np.errstate(over="ignore"):
+        for _ in range(10):
+            _quarter_np(x, 0, 4, 8, 12)
+            _quarter_np(x, 1, 5, 9, 13)
+            _quarter_np(x, 2, 6, 10, 14)
+            _quarter_np(x, 3, 7, 11, 15)
+            _quarter_np(x, 0, 5, 10, 15)
+            _quarter_np(x, 1, 6, 11, 12)
+            _quarter_np(x, 2, 7, 8, 13)
+            _quarter_np(x, 3, 4, 9, 14)
+        x += state
+    return x.T
+
+
 class ChaCha20Rng:
     """Parity implementation of ``rand_chacha::ChaCha20Rng``."""
 
@@ -90,3 +138,23 @@ class ChaCha20Rng:
         lo = self.next_u32()
         hi = self.next_u32()
         return lo | (hi << 32)
+
+    def _keystream_u32(self, n: int) -> np.ndarray:
+        """The next ``n`` keystream words, as ``n`` calls of ``next_u32``
+        give them: the buffered words first, then whole blocks."""
+        take = min(len(self._buf), n)
+        head = np.array(self._buf[:take], dtype=np.uint32)
+        del self._buf[:take]
+        rem = n - take
+        if rem == 0:
+            return head
+        nblocks = (rem + 15) // 16
+        flat = chacha20_blocks_np(self._key, self._counter, [0, 0], nblocks).reshape(-1)
+        self._counter += nblocks
+        self._buf = [int(w) for w in flat[rem:]]
+        return np.concatenate([head, flat[:rem]])
+
+    def fill_u64(self, count: int) -> np.ndarray:
+        """The next ``count`` ``next_u64`` draws as a uint64 array."""
+        w = self._keystream_u32(2 * count).astype(np.uint64)
+        return w[0::2] | (w[1::2] << np.uint64(32))

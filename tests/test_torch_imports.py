@@ -81,8 +81,24 @@ def _ctx():
     )
 
 
+NEW_HOST_MODULES = ["prover", "verifier", "r1cs.poly", "circuits.simple",
+                    "circuits.healthcare", "circuits.test_vectors"]
+
+
+@pytest.mark.parametrize("name", NEW_HOST_MODULES)
+def test_host_golden_path_is_walked_by_the_import_rule(name):
+    """The host golden path's modules are among those that
+    ``test_every_module_imports_without_jax`` imports, and name no device."""
+    assert f"lambda_snark_tpu_torch.{name}" in _port_modules()
+    with open(os.path.join(REPO, "lambda_snark_tpu_torch", *name.split(".")) + ".py") as f:
+        tree = ast.parse(f.read())
+    params = [a.arg for node in ast.walk(tree) if isinstance(node, ast.FunctionDef)
+              for a in node.args.args + node.args.kwonlyargs]
+    assert "device" not in params
+
+
 @pytest.mark.parametrize("entry", ["resolve", "commit_context", "prove", "succinct_batch",
-                                   "succinct"])
+                                   "succinct", "succinct_zk", "succinct_stream"])
 def test_entry_points_default_to_cuda(entry):
     _no_card()
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -100,6 +116,11 @@ def test_entry_points_default_to_cuda(entry):
             witness = port.multiplication_gates_witness(8, gl)
             if entry == "succinct":
                 port.prove_r1cs_succinct(r1cs, witness, _ctx(), 1)
+            elif entry == "succinct_zk":
+                port.prove_r1cs_succinct_batch(r1cs, [witness], _ctx(), [1], True,
+                                               blinding_seeds=[2])
+            elif entry == "succinct_stream":
+                port.prove_r1cs_succinct_stream(r1cs, [witness], _ctx(), 1)
             else:
                 port.prove_r1cs_succinct_batch(r1cs, [witness], _ctx(), [1])
 
@@ -479,3 +500,62 @@ def test_dft_pass_deep_routes_match_plain_on_card(monkeypatch, q):
         assert torch.equal(ntt_large.ntt_inverse_large(large, x, pre=pre, post=post, scale=3),
                            ntt_large.ntt_inverse_large_plain(large, x, pre=pre, post=post,
                                                               scale=3))
+
+
+def _kind7_instance(m: int, count: int):
+    """m multiplication gates over Goldilocks, ``count`` witnesses, a ring
+    of n = m (k = 1) and small FRI parameters."""
+    from lambda_snark_tpu_torch.proof.fri import FriParams
+
+    gl = port.NTT_MODULUS
+    r1cs = port.multiplication_gates_circuit(m, gl)
+    ws = [port.multiplication_gates_witness(m, gl, seed=i) for i in range(count)]
+    ctx = port.LweContext(port.Params(port.SecurityLevel.BITS128,
+                                      port.Profile.ring_b(n=m, k=1, q=gl, sigma=3.19)))
+    return r1cs, ws, ctx, FriParams(3, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [64, 1 << 10])
+def test_zk_kind7_on_card_equals_cpu(m):
+    """ZK kind 7 on the card (kernel Q, the mask products and the LDE on
+    kernel T, kernels K and R) gives the CPU path's bytes, and the proofs
+    verify."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    r1cs, ws, ctx, params = _kind7_instance(m, 3)
+    seeds, blinds = [1, 2, 3], [4, 5, 6]
+    kernels.reset_launches()
+    card = port.prove_r1cs_succinct_batch(r1cs, ws, ctx, seeds, True, params, blinds)
+    counts = kernels.launches()
+    cpu = port.prove_r1cs_succinct_batch(r1cs, ws, ctx, seeds, True, params, blinds,
+                                         device="cpu")
+    assert [p.to_bytes() for p in card] == [p.to_bytes() for p in cpu]
+    assert all(port.verify_r1cs_succinct(p, [1], r1cs, min_params=params) for p in card)
+    for entry in ("quotient_goldilocks", "ring_commit_goldilocks", "ntt_four_step",
+                  "ntt_rows", "keccak_group_forest"):
+        assert counts[entry] >= 1, (entry, counts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [1, 2, 3])
+def test_pipelined_on_card_equals_unchunked(chunk):
+    """The chunk-pipelined prover on the card (the next chunk's front end
+    enqueued before the last chunk is assembled) gives the unchunked
+    prover's bytes, tail chunk included, and so does the stream over it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    r1cs, ws, ctx, params = _kind7_instance(256, 7)
+    seeds = list(range(10, 17))
+    plain = port.prove_r1cs_succinct_batch(r1cs, ws, ctx, seeds, fri_params=params)
+    piped = port.prove_r1cs_succinct_batch(r1cs, ws, ctx, seeds, fri_params=params,
+                                           pipeline_chunk=chunk)
+    assert [p.to_bytes() for p in piped] == [p.to_bytes() for p in plain]
+    cpu = port.prove_r1cs_succinct_batch(r1cs, ws[:2], ctx, seeds[:2], fri_params=params,
+                                         pipeline_chunk=1, device="cpu")
+    assert [p.to_bytes() for p in piped[:2]] == [p.to_bytes() for p in cpu]
+    streamed = [p for _i, p in port.prove_r1cs_succinct_stream(
+        r1cs, ws, ctx, 5, batch=4, fri_params=params, pipeline_chunk=chunk)]
+    again = [p for _i, p in port.prove_r1cs_succinct_stream(r1cs, ws, ctx, 5, batch=7,
+                                                            fri_params=params)]
+    assert [p.to_bytes() for p in streamed] == [p.to_bytes() for p in again]
