@@ -96,10 +96,26 @@ Phases, each printing one flushed line with the seconds since start:
     quotient against ``artifacts/r1cs/healthcare_quotient.json``,
     ``prove_r1cs(with_opening=True)`` through ``verify_r1cs_with_context``,
     and kinds 1, 2, 3 and 6 through ``deserialize_any`` and their verifiers;
+22. ``prove_r1cs_succinct_aggregate`` (kind 8) at the JAX benchmark's two
+    shapes: agg13 (m = 2^13, S = 16, plain and ZK) and agg10 (m = 2^10,
+    S = 128, plain), ring n = m, k = 1, default FriParams: every aggregate
+    verifies after ``deserialize_any``, a flipped FRI path byte and a
+    flipped statement evaluation are rejected, a card run at a reduced S
+    (2 at agg13, 8 at agg10) equals a ``device="cpu"`` run byte for byte,
+    kernels Q, R, T and K launched (counts per batch printed), the median
+    of five batches, proofs/s and bytes per statement, and the idle share of
+    one profiled batch; then kernels K, T, Q and R at every shape each run
+    launched them at, as in 18;
+23. the host routes: kind 7 over the 44-bit field and the healthcare prime
+    (plain and ZK), kind 7 at ring degree n < m (a zero-quotient circuit on
+    the card's front end, the quotient committed on the host), compact
+    kinds 4 and 5 and the phase-2 checked proof on the healthcare circuit;
+    each verifies and a tampered one is rejected; host seconds per route;
 
 then the JSON lines: kind 7 at m = 2^13 (proofs/s, breakdown, idle share),
 kind 7 at m = 2^14, the streams, ZK kind 7, the pipelined prover, the
-kind-7 stream, the host path, and the ``kernels`` line: for each kernel
+kind-7 stream, the host path, kind 8 (one line per shape), the host routes,
+and the ``kernels`` line: for each kernel
 on each path its time, its plain twin's time, its bound and its launches in
 that path's run, counted per C entry (the four-step NTT's entry launches
 two kernels, one per pass) and, for kernels K and T on the m = 2^14 kind-7
@@ -185,6 +201,10 @@ FRI_QUERIES = 30
 PIPE_SIZES, PIPE_CHUNK = (64, 128), 32
 # prove_r1cs_succinct_stream: two batches of 16 and a tail of 8
 STREAM7_COUNT, STREAM7_BATCH = 40, 16
+# kind 8 at the JAX benchmark's shapes (bench.py:713-726, 748-762):
+# (label, m, statements, zk, statements of the CPU comparison)
+KIND8 = (("agg13", 1 << 13, 16, False, 2), ("agg13_zk", 1 << 13, 16, True, 2),
+         ("agg10", 1 << 10, 128, False, 8))
 
 
 def sass_mix(path: str) -> dict:
@@ -1317,6 +1337,172 @@ def host_golden_phase(np, lst):
     return times
 
 
+def kind8_phase(np, torch, lst, dev, rng, label: str, m: int, s: int, zk: bool, check: int):
+    """Phase 22: ``prove_r1cs_succinct_aggregate`` at m, S on the card.
+    Returns (the run's launches, its launches per shape, its record)."""
+    import dataclasses
+
+    from lambda_snark_tpu_torch import kernels
+    from lambda_snark_tpu_torch.proof.aggregate import verify_r1cs_succinct_aggregate
+
+    ctx, r1cs = kind7_context(lst, m), kind7_circuit(lst, m)
+    wits = kind7_witnesses(np, lst, dev, rng, s, m)
+    seeds, blinds = list(range(600, 600 + s)), list(range(900, 900 + s))
+
+    def prove(device="cuda", rows=s):
+        return lst.prove_r1cs_succinct_aggregate(
+            r1cs, wits[:rows], ctx, seeds[:rows], zk,
+            blinding_seeds=blinds[:rows] if zk else None, device=device)
+
+    prove()  # warm-up
+    if prove(rows=check).to_bytes() != prove("cpu", check).to_bytes():
+        raise RuntimeError(f"kind 8 {label}: the card's S={check} aggregate differs from the "
+                           "CPU run")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t = time.time()
+    proof = prove()
+    times = [time.time() - t]
+    launches, shapes = kernels.launches(), dict(kernels.LAUNCHES)
+    check_kind7_launches(launches, f"kind 8 {label}")
+    blob = proof.to_bytes()
+    publics = [[1]] * s
+    t = time.time()
+    if not verify_r1cs_succinct_aggregate(lst.deserialize_any(blob), publics, r1cs):
+        raise RuntimeError(f"kind 8 {label}: the aggregate does not verify")
+    verify_s = time.time() - t
+    q0 = proof.fri.queries[0]
+    field_name = "layer_openings" if q0.layer_openings else "input_openings"
+    ops = getattr(q0, field_name)
+    bad_op = dataclasses.replace(ops[0], path=bytes([ops[0].path[0] ^ 1]) + ops[0].path[1:])
+    bad_q = dataclasses.replace(q0, **{field_name: (bad_op,) + ops[1:]})
+    st = proof.statements[s // 2]
+    bad_st = dataclasses.replace(st, evals=(st.evals[0] ^ 1,) + st.evals[1:])
+    tampered = [
+        dataclasses.replace(proof, fri=dataclasses.replace(
+            proof.fri, queries=(bad_q,) + proof.fri.queries[1:])),
+        dataclasses.replace(proof, statements=proof.statements[: s // 2] + (bad_st,)
+                            + proof.statements[s // 2 + 1:]),
+    ]
+    if any(verify_r1cs_succinct_aggregate(p, publics, r1cs) for p in tampered):
+        raise RuntimeError(f"kind 8 {label}: a tampered aggregate verified")
+    for _ in range(KIND7_REPS - 1):
+        torch.cuda.synchronize()
+        t = time.time()
+        prove()
+        times.append(time.time() - t)
+    median = sorted(times)[len(times) // 2]
+    trace = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                         f"kind8_{label}_trace.json")
+    wall, busy, top = device_busy(torch, prove, trace)
+    idle = None if busy is None else 1.0 - busy / wall
+    phase(f"phase 22 prove_r1cs_succinct_aggregate {label} m={m} S={s} zk={zk}: the aggregate "
+          f"verifies after deserialize_any ({verify_s:.3f} s), a flipped FRI path byte and a "
+          f"flipped statement evaluation rejected, the S={check} aggregate byte-identical to "
+          f"the CPU run; launches per batch {nonzero(launches)}; end to end "
+          f"{[round(x, 4) for x in times]} s, median {median:.4f} s ({s / median:.2f} "
+          f"proofs/s), {len(blob)} bytes ({len(blob) / s:.1f} per statement); one profiled "
+          f"batch {wall:.4f} s wall, device busy "
+          f"{'not measured' if busy is None else f'{busy:.4f} s, idle share {idle:.3f}'}; "
+          f"most device time: {[(k, round(v, 3)) for k, v in top]}")
+    return launches, shapes, dict(
+        label=label, m=m, statements=s, zk=zk, mask_len=proof.mask_len, end_to_end_s=times,
+        end_to_end_median_s=median, proofs_per_s=s / median, proof_bytes=len(blob),
+        bytes_per_statement=len(blob) / s, verify_s=verify_s,
+        launches_per_batch=nonzero(launches), profiled_wall_s=wall, device_busy_s=busy,
+        device_idle_share=idle, top_kernels_ms=top)
+
+
+def host_routes_phase(np, lst):
+    """Phase 23: the host routes at the JAX tests' shapes (FriParams(3, 8),
+    ring n = 64, k = 1): kind 7 over the 44-bit field and the healthcare
+    prime, plain and ZK; kind 7 at ring degree n < m (n = 8, m = 16, a
+    zero-quotient circuit; the front end on the card); compact kinds 4/5
+    and the checked proof on the healthcare circuit. Returns host seconds
+    per route."""
+    import dataclasses
+
+    from lambda_snark_tpu_torch.circuits import healthcare
+    from lambda_snark_tpu_torch.core.params import HEALTHCARE_DUMP_MODULUS
+    from lambda_snark_tpu_torch.proof.fri import root_of_order
+    from lambda_snark_tpu_torch.r1cs.domain import Domain
+
+    fast = lst.FriParams(log_blowup=3, num_queries=8)
+
+    def ctx_of(q, n=64, k=1):
+        return lst.LweContext(lst.Params(lst.SecurityLevel.BITS128,
+                                         lst.Profile.ring_b(n=n, k=k, q=q, sigma=SIGMA)))
+
+    def kind7(label, r1cs, w, ctx, zk, seeds=(1,)):
+        t = time.time()
+        proofs = lst.prove_r1cs_succinct_batch(r1cs, [w] * len(seeds), ctx, list(seeds), zk,
+                                               fast, blinding_seeds=[5] * len(seeds) if zk
+                                               else None)
+        elapsed = time.time() - t
+        public = r1cs.public_inputs(w)
+        for p in proofs:
+            if not lst.verify_r1cs_succinct(lst.deserialize_any(p.to_bytes()), public, r1cs,
+                                            min_params=fast):
+                raise RuntimeError(f"host routes: {label} does not verify")
+        bad = dataclasses.replace(proofs[0], q_alpha=(proofs[0].q_alpha + 1) % r1cs.modulus)
+        if lst.verify_r1cs_succinct(bad, public, r1cs, min_params=fast):
+            raise RuntimeError(f"host routes: a tampered {label} proof verified")
+        return elapsed
+
+    times = {}
+    rng = np.random.default_rng(SEED)
+    for name, q, m in (("q45", lst.NTT_FRIENDLY_MODULUS, 16),
+                       ("healthcare_prime", HEALTHCARE_DUMP_MODULUS, 8)):
+        r1cs = lst.multiplication_gates_circuit(m, q)
+        r1cs = dataclasses.replace(r1cs, domain=Domain.roots(m, q, root_of_order(q, m)))
+        a = [int(v) for v in rng.integers(1, q, size=m)]
+        b = [int(v) for v in rng.integers(1, q, size=m)]
+        w = [1] + a + b + [x * y % q for x, y in zip(a, b)]
+        for zk in (False, True):
+            times[f"kind7_{name}_{'zk' if zk else 'plain'}_s"] = kind7(
+                f"kind 7 over {name}", r1cs, w, ctx_of(q), zk)
+    # n < m: m = 16 gates a_i * 1 = c_i (Q = 0) with ring n = 8, three statements
+    gl, m = lst.NTT_MODULUS, 16
+    builder = lst.CircuitBuilder(gl)
+    one, xs, ys = builder.alloc_var(), builder.alloc_vars(m), builder.alloc_vars(m)
+    builder.set_public_inputs(1)
+    for x, y in zip(xs, ys):
+        builder.add_constraint([(x, 1)], [(one, 1)], [(y, 1)])
+    xs_w = [int(v) for v in rng.integers(0, gl, size=m, dtype=np.uint64)]
+    times["kind7_ring_below_m_s"] = kind7("kind 7 at n < m", builder.build(), [1] + xs_w + xs_w,
+                                          ctx_of(gl, n=8), False, seeds=(1, 2, 3))
+    # compact kinds 4 and 5, the checked proof: the healthcare circuit
+    q = 17592186044423
+    r1cs = healthcare.build_healthcare_circuit(q)
+    w = healthcare.high_risk_witness(q)
+    public = r1cs.public_inputs(w)
+    ctx = lst.setup(lst.Params(lst.SecurityLevel.BITS128,
+                               lst.Profile.ring_b(n=RING_N, k=RING_K, q=q, sigma=SIGMA)))
+    for kind, kw in ((4, {}), (5, dict(blinding_seed=9, zk=True))):
+        t = time.time()
+        blob = lst.prove_r1cs_compact(r1cs, w, ctx, 11, **kw).to_bytes()
+        proof = lst.deserialize_any(blob)
+        if blob[8] != kind or len(blob) != (193 if kind == 4 else 201) or \
+                not lst.verify_r1cs_compact(proof, public, r1cs):
+            raise RuntimeError(f"host routes: compact kind {kind} does not round-trip and verify")
+        if lst.verify_r1cs_compact(dataclasses.replace(proof, q_alpha=(proof.q_alpha + 1) % q),
+                                   public, r1cs):
+            raise RuntimeError(f"host routes: a tampered compact kind {kind} verified")
+        times[f"compact_kind{kind}_s"] = time.time() - t
+    t = time.time()
+    proof, binding = lst.prove_r1cs_checked(r1cs, w, ctx, 0xBEEF)
+    if not lst.verify_r1cs_checked(proof, binding, public, r1cs, ctx):
+        raise RuntimeError("host routes: the checked proof does not verify")
+    bad = dataclasses.replace(proof, a_z_alpha=(proof.a_z_alpha + 1) % q)
+    if lst.verify_r1cs_checked(bad, binding, public, r1cs, ctx):
+        raise RuntimeError("host routes: a tampered checked proof verified")
+    times["checked_s"] = time.time() - t
+    phase(f"phase 23 host routes: kind 7 over the 44-bit field and the healthcare prime (plain "
+          f"and ZK), kind 7 at n < m, compact kinds 4 and 5 and the checked proof (healthcare) "
+          f"verify, and their tampered twins do not; host s {times}")
+    return times
+
+
 def hold_path_shapes(np, torch, lst, dev, rng, hold, shapes, held, tag, ctx, num) -> list:
     """Kernels K, T, Q and R at every (entry, input shape, variant) of a
     path's run (``kernels.LAUNCHES``) against their twins, each shape held
@@ -1711,6 +1897,14 @@ def main() -> int:
     entries += hold_path_shapes(np, torch, lst, dev, rng, hold, s7_shapes, held,
                                 "kind7_stream", ctx7, 20)
     host = host_golden_phase(np, lst)
+    kind8_lines = []
+    for label, m, s8, zk8, check in KIND8:
+        k8_launches, k8_shapes, rec = kind8_phase(np, torch, lst, dev, rng, label, m, s8, zk8,
+                                                  check)
+        entries += hold_path_shapes(np, torch, lst, dev, rng, hold, k8_shapes, held,
+                                    f"kind8_{label}", kind7_context(lst, m), 22)
+        kind8_lines.append({"kind8": rec, f"launches_kind8_{label}": nonzero(k8_launches)})
+    host_routes = host_routes_phase(np, lst)
     print(json.dumps({"kind7": kind7}), flush=True)
     print(json.dumps({"kind7_2pow14": kind7_long, "launches_kind7_2pow14": k7_long,
                       "shape_launches_kind7_2pow14": [
@@ -1726,6 +1920,9 @@ def main() -> int:
     print(json.dumps({"kind7_stream": stream7, "launches_kind7_stream": nonzero(s7_launches)}),
           flush=True)
     print(json.dumps({"host_golden_s": host}), flush=True)
+    for line in kind8_lines:
+        print(json.dumps(line), flush=True)
+    print(json.dumps({"host_routes_s": host_routes}), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)

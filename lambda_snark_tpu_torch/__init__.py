@@ -1,11 +1,13 @@
 """lambda_snark_tpu_torch: the PyTorch / CUDA port of lambda_snark_tpu.
 
-It runs the JAX package's batched and streamed prove stage (kinds 2 and 3)
-and its succinct FRI provers (kind 7, plain and zero-knowledge: the batch,
-its chunk-pipelined form and the stream) on an NVIDIA H100 and gives the
-same proof bytes; its host provers (``prover``: kinds 1, 2, 3 and 6) are
-the golden path on Python ints. It reads, verifies and stores its proofs
-and the JAX package's (kinds 1, 2, 3, 6 and 7). It imports torch, numpy
+It runs the JAX package's batched and streamed prove stage (kinds 2 and 3),
+its succinct FRI provers (kind 7, plain and zero-knowledge: the batch,
+its chunk-pipelined form and the stream) and its aggregated proofs (kind
+8) on an NVIDIA H100 and gives the same proof bytes; its host provers
+(``prover``: kinds 1, 2, 3 and 6; compact kinds 4 and 5; the phase-2
+checked proof; kind 7 off the Goldilocks fast front end) are the golden
+path on Python ints. It reads, verifies and stores its proofs and the JAX
+package's (kinds 1 to 8). It imports torch, numpy
 and the standard library only, never ``jax`` or ``lambda_snark_tpu``.
 Device entry points default to ``device="cuda"`` and raise without a card
 unless given ``device="cpu"``, where every kernel runs as its plain
@@ -44,6 +46,13 @@ from .core.params import (
 from .entry import entry
 from .prover import prove_r1cs, prove_r1cs_zk, prove_simple, prove_zk, setup, simulate_proof
 from .prover_batched import prove_r1cs_batched, prove_r1cs_stream
+from .proof.aggregate import (
+    AggregatedProofR1CS,
+    prove_r1cs_succinct_aggregate,
+    verify_r1cs_succinct_aggregate,
+)
+from .proof.checks import prove_r1cs_checked, verify_r1cs_checked
+from .proof.compact import CompactProofR1CS, prove_r1cs_compact, verify_r1cs_compact
 from .proof.fri import FriParams
 from .proof.polynomial import Polynomial
 from .proof.succinct import (

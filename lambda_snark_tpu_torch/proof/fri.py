@@ -9,7 +9,15 @@ The port's copy of the host parts of the JAX package's ``proof/fri.py``:
 - ``LayerOpening``, ``GroupOpening``, ``FriQuery``, ``FriProof`` with their
   wire bytes both ways;
 - ``fri_verify``, the scalar verifier (``hashlib`` paths, Python-int field
-  math; the JAX package's native fast path is not carried over).
+  math; the JAX package's native fast path is not carried over);
+- the host prover: ``lde``, ``commit_codeword*``, ``_fold_codeword`` and
+  ``fri_prove``, the route of every circuit off the Goldilocks fast front
+  end (the 44-bit field, the healthcare prime, other Goldilocks domains).
+  Goldilocks arrays are uint64 numpy, their arithmetic torch ops on CPU
+  words (the JAX package's vectorised numpy backend); the other fields are
+  Python ints, their NTT ``r1cs.poly.ntt_forward``. Trees hash with
+  ``hashlib`` (``proof.merkle``): the bytes are those of the JAX package's
+  device-hashed trees.
 
 Fold rule: with f(x) = f_e(x^2) + x f_o(x^2) and challenge c, the next
 layer is v' = ((lo + hi) + c (lo - hi) / x) / 2. The device prover is
@@ -37,7 +45,9 @@ from ..core.params import (
 )
 from ..ops import modarith
 from ..ops.keccak import MAX_GROUP_ORACLES
-from .merkle import verify_path
+from ..ops.ntt import NttPlan, ntt_forward as _ntt_forward_words
+from ..r1cs.poly import ntt_forward, ntt_inverse
+from .merkle import MerkleTree, build_forest_u64_groups, build_forest_u64_pairs, verify_path
 
 #: modulus -> (two-adicity, generator of the order-2^two_adicity subgroup,
 #: coset offset = a multiplicative generator of F_q^*)
@@ -51,7 +61,6 @@ _GL = modarith.GOLDILOCKS
 
 #: Cap on statements in an aggregated proof (a bound of ``FriQuery.read``).
 MAX_AGGREGATE_STATEMENTS = 4096
-
 
 
 def fri_supported(modulus: int) -> bool:
@@ -95,6 +104,151 @@ def _gl_powers(base: int, n: int, scale: int = 1) -> np.ndarray:
         out = torch.cat([out, modarith.mul_mod(out[:m], cur, _GL)])
         cur = cur * cur % _GL
     return modarith.to_u64(out[:n])
+
+
+def _gl_pow_array(a: np.ndarray, exp: int) -> np.ndarray:
+    """Elementwise a^exp mod Goldilocks (square and multiply on the array)."""
+    base = modarith.to_words(np.ascontiguousarray(a, dtype=np.uint64).reshape(-1))
+    result = torch.ones_like(base)
+    while exp:
+        if exp & 1:
+            result = modarith.mul_mod(result, base, _GL)
+        exp >>= 1
+        if exp:
+            base = modarith.mul_mod(base, base, _GL)
+    return modarith.to_u64(result).reshape(np.shape(a))
+
+
+def _gl_inverse_array(a: np.ndarray) -> np.ndarray:
+    """Elementwise inverse mod Goldilocks (Fermat); raises DomainError on a
+    zero element."""
+    if bool((np.asarray(a) == 0).any()):
+        raise DomainError("batch_inverse: zero element (challenge hit the domain)")
+    return _gl_pow_array(a, _GL - 2)
+
+
+def batch_inverse(vals: Sequence[int], q: int) -> List[int]:
+    """Montgomery batch inversion; raises DomainError on a zero element."""
+    n = len(vals)
+    prefix = [0] * n
+    acc = 1
+    for i, v in enumerate(vals):
+        prefix[i] = acc
+        acc = acc * v % q
+    if acc == 0:
+        raise DomainError("batch_inverse: zero element (challenge hit the domain)")
+    inv_acc = field.mod_inverse(acc, q)
+    if inv_acc is None:
+        raise DomainError("batch_inverse: non-invertible product")
+    out = [0] * n
+    for i in range(n - 1, -1, -1):
+        out[i] = prefix[i] * inv_acc % q
+        inv_acc = inv_acc * vals[i] % q
+    return out
+
+
+def coset_points(offset: int, omega: int, n: int, q: int) -> List[int]:
+    pts = [0] * n
+    acc = offset % q
+    for i in range(n):
+        pts[i] = acc
+        acc = acc * omega % q
+    return pts
+
+
+_LDE_PLANS: dict = {}
+
+
+def _gl_u64(values) -> np.ndarray:
+    """Values as uint64 reduced mod Goldilocks (uint64 arrays are taken as
+    reduced already, as the JAX package does)."""
+    if isinstance(values, np.ndarray) and values.dtype == np.uint64:
+        return values
+    return np.array([int(c) % _GL for c in values], dtype=np.uint64)
+
+
+def lde(coeffs: Sequence[int], n: int, offset: int, omega: int, q: int):
+    """The polynomial on the size-``n`` coset offset <omega>: its coefficients
+    twisted by offset^i, then one cyclic NTT. Goldilocks gives uint64
+    (the transform's root is ``root_of_order(q, n)``, as in the JAX
+    package), the other fields a list of ints."""
+    if len(coeffs) > n:
+        raise DomainError(f"polynomial length {len(coeffs)} exceeds codeword size {n}")
+    if q == _GL:
+        padded = np.zeros(n, dtype=np.uint64)
+        padded[: len(coeffs)] = _gl_u64(coeffs)
+        if n not in _LDE_PLANS:
+            _LDE_PLANS[n] = NttPlan.create(n, _GL, root_of_order(_GL, n))
+        twisted = modarith.mul_mod(modarith.to_words(padded),
+                                   modarith.to_words(_gl_powers(offset, n)), _GL)
+        return modarith.to_u64(_ntt_forward_words(_LDE_PLANS[n], twisted))
+    padded = [c % q for c in coeffs] + [0] * (n - len(coeffs))
+    acc = 1
+    twisted = [0] * n
+    for i, c in enumerate(padded):
+        twisted[i] = c * acc % q
+        acc = acc * offset % q
+    return ntt_forward(twisted, q, omega)
+
+
+def commit_codeword(values: Sequence[int]) -> MerkleTree:
+    """Merkle-commit a codeword with paired leaves (i, i + n/2)."""
+    values = np.asarray(values, dtype=np.uint64)
+    half = len(values) // 2
+    return build_forest_u64_pairs(values[None, :half], values[None, half:])[0]
+
+
+def commit_codeword_group(codewords: Sequence[Sequence[int]]) -> MerkleTree:
+    """Merkle-commit a group of equal-size codewords in one interleaved tree
+    (leaf i = concat_g pack("<QQ", cw_g[i], cw_g[i + n/2]))."""
+    if len(codewords) > MAX_GROUP_ORACLES:
+        raise DomainError(
+            f"group of {len(codewords)} oracles exceeds MAX_GROUP_ORACLES "
+            f"({MAX_GROUP_ORACLES}: the single-Keccak-block leaf limit)")
+    n = len(codewords[0])
+    if any(len(cw) != n for cw in codewords):
+        raise DomainError("group codewords must share one size")
+    return build_forest_u64_groups(
+        np.stack([np.asarray(cw, dtype=np.uint64) for cw in codewords])[None])[0]
+
+
+def commit_codeword_groups(groups: Sequence[Sequence[Sequence[int]]]) -> List[MerkleTree]:
+    """``commit_codeword_group`` of each group."""
+    return [commit_codeword_group(grp) for grp in groups]
+
+
+def commit_codewords(codewords: Sequence[Sequence[int]]) -> List[MerkleTree]:
+    """``commit_codeword`` of each codeword."""
+    return [commit_codeword(cw) for cw in codewords]
+
+
+def _fold_codeword(values, offset: int, omega: int, c: int, q: int):
+    """One fold of a whole codeword on offset <omega> (n -> n/2)."""
+    half = len(values) // 2
+    inv2 = field.mod_inverse(2, q)
+    if q == _GL:
+        v = modarith.to_words(np.asarray(values, dtype=np.uint64))
+        lo, hi = v[:half], v[half:]
+        inv_xs = modarith.to_words(_gl_powers(field.mod_inverse(omega, q), half,
+                                              scale=field.mod_inverse(offset, q)))
+        t = modarith.mul_mod(modarith.mul_mod(modarith.sub_mod(lo, hi, q), c % q, q),
+                             inv_xs, q)
+        return modarith.to_u64(modarith.mul_mod(
+            modarith.add_mod(modarith.add_mod(lo, hi, q), t, q), inv2, q))
+    inv_xs = batch_inverse(coset_points(offset, omega, half, q), q)
+    out = [0] * half
+    for i in range(half):
+        lo, hi = values[i], values[i + half]
+        out[i] = ((lo + hi) + c * ((lo - hi) % q) % q * inv_xs[i]) % q * inv2 % q
+    return out
+
+
+def _fold_pair(lo: int, hi: int, x: int, c: int, q: int) -> int:
+    inv2x = field.mod_inverse(2 * x % q, q)
+    if inv2x is None:
+        raise DomainError("fold point not invertible")
+    inv2 = field.mod_inverse(2, q)
+    return ((lo + hi) % q * inv2 + c * ((lo - hi) % q) % q * inv2x) % q
 
 
 # --- Fiat-Shamir transcript ---------------------------------------------------
@@ -443,3 +597,67 @@ def fri_verify(
                 if folded != fin:
                     return False
     return True
+
+
+# --- host prover ----------------------------------------------------------------
+
+
+def fri_prove(g_codeword, inputs: Sequence[Tuple[Sequence[Sequence[int]], MerkleTree]],
+              offset: int, omega: int, q: int, params: FriParams,
+              tr: FriTranscript) -> FriProof:
+    """Prove that ``g_codeword`` is close to degree < len / 2^log_blowup, on
+    the host, byte for byte the JAX package's ``fri_prove``.
+
+    ``inputs``: groups ``(codewords, tree)`` whose tree commits the group's
+    codewords position-wise; each query opens one path per group. The
+    caller has absorbed the input roots and the claimed evaluations."""
+    params.validate()
+    n0 = len(g_codeword)
+    d_bound = n0 >> params.log_blowup
+    final_len = _effective_final_len(d_bound, params.final_len)
+
+    committed: List[Tuple[Sequence[int], MerkleTree]] = []
+    roots: List[bytes] = []
+    cur = g_codeword
+    off, om, d = offset, omega, d_bound
+    while True:
+        c = tr.challenge_field(q, b"fri-fold")
+        cur = _fold_codeword(cur, off, om, c, q)
+        off, om, d = off * off % q, om * om % q, d >> 1
+        if d <= final_len:
+            break
+        tree = commit_codeword(cur)
+        committed.append((cur, tree))
+        roots.append(tree.root)
+        tr.absorb(b"fri-layer-root", tree.root)
+
+    # the final polynomial: inverse NTT on the residual coset, untwisted
+    coeffs = ntt_inverse([int(v) for v in cur], q, om)
+    inv_off = field.mod_inverse(off, q)
+    acc, final = 1, []
+    for cf in coeffs:
+        final.append(cf * acc % q)
+        acc = acc * inv_off % q
+    if any(final[final_len:]):
+        raise DomainError("FRI final polynomial exceeds its degree bound")
+    final = final[:final_len]
+    tr.absorb_words(b"fri-final", final)
+
+    indices = tr.challenge_indices(n0 // 2, params.num_queries, b"fri-query")
+    queries: List[FriQuery] = []
+    for i0 in indices:
+        input_openings = []
+        for group_cws, tree in inputs:
+            half = len(group_cws[0]) // 2
+            vals = tuple(int(v) for cw in group_cws for v in (cw[i0], cw[i0 + half]))
+            input_openings.append(GroupOpening(vals, tuple(tree.path(i0))))
+        layer_openings = []
+        pos = i0
+        for values, tree in committed:
+            half = len(values) // 2
+            p = pos % half
+            layer_openings.append(LayerOpening(int(values[p]), int(values[p + half]),
+                                               tuple(tree.path(p))))
+            pos = p
+        queries.append(FriQuery(tuple(input_openings), tuple(layer_openings)))
+    return FriProof(tuple(roots), tuple(final), tuple(queries))

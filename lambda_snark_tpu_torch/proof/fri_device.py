@@ -8,11 +8,15 @@ branch, ``DEVICE_TRANSCRIPT = False``).
   roots;
 - each fold layer is a handful of torch ops with a cached 1/x table;
 - the DEEP combination runs in torch ops (Montgomery batch inversion, with
-  one host inverse per row);
+  one host inverse per row); the aggregate (kind 8) passes its
+  cross-statement lambda ladder as tables and sums the statements'
+  quotients into one codeword (``sum_statements_device``);
 - the final polynomials come from kernel N (the inverse transform of the
   residual codewords) on the device;
 - the query openings (values and authentication paths of every layer) are
-  gathered on the device and pulled in one transfer per batch.
+  gathered on the device and pulled in one transfer per batch; with
+  ``n_groups`` a FRI statement's oracles sit in several group trees (the
+  aggregate's one tree per statement), each opened at the same indices.
 
 Transcripts stay on the host (``proof.fri.FriTranscript``); the per-layer
 roots absorb there, in the JAX order. Proof bytes equal the JAX package's.
@@ -170,27 +174,42 @@ def _coset_points(n0: int, offset: int, omega: int, device) -> torch.Tensor:
     return _XS_CACHE[key]
 
 
-def deep_combine_device(input_vals: torch.Tensor, alphas, betas, lams, evals,
-                        offset: int, omega: int) -> torch.Tensor:
-    """The batched DEEP quotient, (S, K, n0) codewords -> g (S, n0):
-
-        g = sum_k lam^(2k) (cw_k - ev_a_k) / (x - alpha)
-                  + lam^(2k+1) (cw_k - ev_b_k) / (x - beta)
-
-    alphas/betas/lams (S,) and evals (S, 2K) (the alpha block, then beta)
-    are host uint64; the lambda ladder is the JAX order (lam_pow_0 = 1;
-    lam2 = lam_pow lam; next lam_pow = lam2 lam)."""
-    s, k_in, n0 = input_vals.shape
-    dev = input_vals.device
-    xs = _coset_points(n0, offset, omega, dev)
-    lam_a = np.empty((s, k_in), dtype=np.uint64)
-    lam_b = np.empty((s, k_in), dtype=np.uint64)
-    for si in range(s):
-        lam, lam_pow = int(lams[si]), 1
+def lambda_ladder(lam: int, rows: int, k_in: int):
+    """The weights (lam_a, lam_b), uint64 (rows, K), of one ladder run across
+    the rows in order: lam_pow_0 = 1; lam2 = lam_pow lam; next lam_pow =
+    lam2 lam (the JAX order)."""
+    lam_a = np.empty((rows, k_in), dtype=np.uint64)
+    lam_b = np.empty((rows, k_in), dtype=np.uint64)
+    lam_pow = 1
+    for si in range(rows):
         for k in range(k_in):
             lam2 = lam_pow * lam % P
             lam_a[si, k], lam_b[si, k] = lam_pow, lam2
             lam_pow = lam2 * lam % P
+    return lam_a, lam_b
+
+
+def deep_combine_device(input_vals: torch.Tensor, alphas, betas, lams, evals,
+                        offset: int, omega: int, lam_tables=None) -> torch.Tensor:
+    """The batched DEEP quotient, (S, K, n0) codewords -> g (S, n0):
+
+        g = sum_k lam_a[k] (cw_k - ev_a_k) / (x - alpha)
+                  + lam_b[k] (cw_k - ev_b_k) / (x - beta)
+
+    alphas/betas/lams (S,) and evals (S, 2K) (the alpha block, then beta)
+    are host uint64. Each statement's weights are its own ladder of
+    ``lams[i]`` (``lambda_ladder``) unless ``lam_tables`` = (lam_a, lam_b),
+    uint64 (S, K), gives them (the aggregate's one ladder across the
+    statements); ``lams`` is then unused."""
+    s, k_in, n0 = input_vals.shape
+    dev = input_vals.device
+    xs = _coset_points(n0, offset, omega, dev)
+    if lam_tables is not None:
+        lam_a, lam_b = lam_tables
+    else:
+        ladders = [lambda_ladder(int(lams[si]), 1, k_in) for si in range(s)]
+        lam_a = np.concatenate([a for a, _b in ladders])
+        lam_b = np.concatenate([b for _a, b in ladders])
     points = _words(np.stack([alphas, betas]), dev)  # (2, S)
     inv = _batch_inverse(modarith.sub_mod(xs[None, None, :], points[:, :, None], P)
                          .reshape(2 * s, n0)).reshape(2, s, 1, n0)
@@ -203,6 +222,16 @@ def deep_combine_device(input_vals: torch.Tensor, alphas, betas, lams, evals,
         for k in range(k_in):
             if j or k:
                 g = modarith.add_mod(g, terms[j, :, k], P)
+    return g
+
+
+def sum_statements_device(g: torch.Tensor) -> torch.Tensor:
+    """(S, n) per-statement quotients -> (1, n), their exact sum mod p (a
+    pairwise tree of torch adds on the device)."""
+    while g.shape[0] > 1:
+        if g.shape[0] & 1:
+            g = torch.cat([g, torch.zeros_like(g[:1])])
+        g = modarith.add_mod(g[0::2], g[1::2], P)
     return g
 
 
@@ -292,14 +321,18 @@ def _take_siblings(forest: DevForest, pos: torch.Tensor) -> List[torch.Tensor]:
 
 
 def fri_open(input_vals: torch.Tensor, input_forest: DevForest, committed, finals,
-             idx: torch.Tensor) -> List[FriProof]:
+             idx: torch.Tensor, n_groups: int = 1) -> List[FriProof]:
     """The query phase: gather every opened value and path on the device,
-    pull them in one transfer, and assemble one FriProof per statement."""
+    pull them in one transfer, and assemble one FriProof per statement.
+    Statement i's K oracles sit in ``n_groups`` trees of K / n_groups
+    (trees i n_groups + g of ``input_forest``), each opened at its
+    indices."""
     s, k_in, n0 = input_vals.shape
     nq = idx.shape[1]
+    gsize = k_in // n_groups
     idx_k = idx[:, None, :].expand(-1, k_in, -1)
     parts = [input_vals.gather(2, idx_k), input_vals.gather(2, idx_k + n0 // 2)]
-    parts += _take_siblings(input_forest, idx)
+    parts += _take_siblings(input_forest, idx.repeat_interleave(n_groups, dim=0))
     depths = [len(input_forest.levels) - 1]
     pos = idx
     for values, forest in committed:
@@ -310,28 +343,29 @@ def fri_open(input_vals: torch.Tensor, input_forest: DevForest, committed, final
         depths.append(len(forest.levels) - 1)
     pulled = iter(_gather_pull(parts))
 
-    def path_bytes(depth: int) -> np.ndarray:  # (S, Q, depth * 32)
+    def path_bytes(depth: int, rows: int) -> np.ndarray:  # (rows, Q, depth * 32)
         levels = [next(pulled) for _ in range(depth)]
-        return np.stack(levels, axis=2).view(np.uint8).reshape(s, nq, 32 * depth)
+        return np.stack(levels, axis=2).view(np.uint8).reshape(rows, nq, 32 * depth)
 
     in_lo, in_hi = next(pulled), next(pulled)  # (S, K, Q)
-    in_path = path_bytes(depths[0])
+    # (S, Q, G, 2 gsize): each group's (lo, hi) pairs in oracle order
+    in_vals = np.stack([in_lo, in_hi], axis=3).transpose(0, 2, 1, 3).reshape(
+        s, nq, n_groups, 2 * gsize).tolist()
+    in_path = path_bytes(depths[0], s * n_groups).reshape(s, n_groups, nq, -1)
     layers = []
     for depth in depths[1:]:
-        v_lo, v_hi = next(pulled), next(pulled)
-        layers.append((v_lo, v_hi, path_bytes(depth)))
+        v_lo, v_hi = next(pulled).tolist(), next(pulled).tolist()
+        layers.append((v_lo, v_hi, path_bytes(depth, s)))
 
     proofs: List[FriProof] = []
     for si in range(s):
         queries = []
         for qi in range(nq):
-            vals = tuple(int(v) for k in range(k_in)
-                         for v in (in_lo[si, k, qi], in_hi[si, k, qi]))
-            layer_ops = tuple(
-                LayerOpening(int(v_lo[si, qi]), int(v_hi[si, qi]), path[si, qi].tobytes())
-                for v_lo, v_hi, path in layers)
-            queries.append(FriQuery((GroupOpening(vals, in_path[si, qi].tobytes()),),
-                                    layer_ops))
+            inputs = tuple(GroupOpening(tuple(in_vals[si][qi][g]), in_path[si, g, qi].tobytes())
+                           for g in range(n_groups))
+            layer_ops = tuple(LayerOpening(v_lo[si][qi], v_hi[si][qi], path[si, qi].tobytes())
+                              for v_lo, v_hi, path in layers)
+            queries.append(FriQuery(inputs, layer_ops))
         roots = tuple(forest.roots[si] for _v, forest in committed)
         proofs.append(FriProof(roots, tuple(finals[si]), tuple(queries)))
     return proofs
@@ -339,15 +373,18 @@ def fri_open(input_vals: torch.Tensor, input_forest: DevForest, committed, final
 
 def fri_prove_device(g: torch.Tensor, input_vals: torch.Tensor, input_forest: DevForest,
                      offset: int, omega: int, q: int, params: FriParams,
-                     trs: Sequence[FriTranscript]) -> List[FriProof]:
+                     trs: Sequence[FriTranscript], n_groups: int = 1) -> List[FriProof]:
     """One FriProof per statement, byte-identical to the JAX prover.
 
     g (S, n0): combined DEEP quotients; input_vals (S, K, n0): the committed
-    input codewords, one interleaved-group tree per statement in
-    ``input_forest``; trs: one transcript per statement, seeded with the
-    roots and evaluations already."""
-    s, _k, n0 = input_vals.shape
-    if tuple(g.shape) != (s, n0) or input_forest.n_trees != s:
+    input codewords, in ``n_groups`` interleaved-group trees per statement
+    (``input_forest``, statement-major, group-minor; the aggregate passes
+    its (S', 4, n0) codewords as (1, 4 S', n0) with n_groups = S'); trs:
+    one transcript per statement, seeded with the roots and evaluations
+    already."""
+    s, k_in, n0 = input_vals.shape
+    if (tuple(g.shape) != (s, n0) or input_forest.n_trees != s * n_groups
+            or k_in % n_groups):
         raise ValueError("g, the input codewords and the forest disagree on shape")
     return fri_open(input_vals, input_forest,
-                    *fri_commit_layers(g, offset, omega, q, params, trs))
+                    *fri_commit_layers(g, offset, omega, q, params, trs), n_groups=n_groups)

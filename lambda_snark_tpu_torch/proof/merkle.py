@@ -7,7 +7,9 @@ arrays [rows, 32] from the hashed leaves up to the one-row root level.
 Device-built levels (``proof.fri_device``, kernel K) reach the host only as
 roots and opened paths; ``MerkleTree(_levels=...)`` wraps levels that were
 built elsewhere, and ``_finish_levels`` hashes a partial stack up to its
-root.
+root. ``build_forest_u64_pairs`` / ``build_forest_u64_groups`` build the
+FRI leaf layouts of uint64 codewords with ``hashlib`` (the JAX package
+hashes them on its device above 4096 leaves; the trees are the same).
 """
 
 from __future__ import annotations
@@ -75,6 +77,34 @@ class MerkleTree:
             out.append(level[index ^ 1].tobytes())
             index >>= 1
         return out
+
+
+def _leaf_blobs(vals: np.ndarray) -> List[MerkleTree]:
+    """(T, half, width) uint64 leaf words -> T trees, leaf i the LE bytes of
+    row i."""
+    t, half, width = vals.shape
+    if half == 0 or half & (half - 1):
+        raise ValueError(f"Merkle leaf count must be a power of two, got {half}")
+    blob = np.ascontiguousarray(vals, dtype="<u8").tobytes()
+    size = 8 * width
+    return [MerkleTree([blob[(ti * half + i) * size: (ti * half + i + 1) * size]
+                        for i in range(half)]) for ti in range(t)]
+
+
+def build_forest_u64_pairs(v_lo: np.ndarray, v_hi: np.ndarray) -> List[MerkleTree]:
+    """T trees from uint64 (T, half) arrays: leaf i of tree t is
+    pack("<QQ", v_lo[t, i], v_hi[t, i])."""
+    return _leaf_blobs(np.stack([np.asarray(v_lo, dtype=np.uint64),
+                                 np.asarray(v_hi, dtype=np.uint64)], axis=2))
+
+
+def build_forest_u64_groups(vals: np.ndarray) -> List[MerkleTree]:
+    """T interleaved-group trees from uint64 (T, G, n): leaf i of tree t is
+    concat_g pack("<QQ", vals[t, g, i], vals[t, g, i + n/2])."""
+    vals = np.asarray(vals, dtype=np.uint64)
+    half = vals.shape[2] // 2
+    pairs = np.stack([vals[:, :, :half], vals[:, :, half:]], axis=3)  # (T, G, half, 2)
+    return _leaf_blobs(pairs.transpose(0, 2, 1, 3).reshape(vals.shape[0], half, -1))
 
 
 def verify_path(root: bytes, index: int, leaf_data: bytes, path) -> bool:

@@ -3,8 +3,10 @@
 The port's copy of the JAX package's ``proof/succinct.py``: the proof
 container and its bytes, the wire-v4 challenge binding (SHA3 of the
 commitment words, then the circuit digest, then the input root), the shared
-transcript seeding, the prover as the batch of one (plain or
-zero-knowledge), a host verifier (``hashlib`` and Python ints, no native
+transcript seeding, the prover (plain or zero-knowledge: the batch of one on
+the device route for Goldilocks circuits on the power-of-two roots domain,
+``_gl_frontend_applicable``; the host route ``_prove_host`` for every other
+circuit, chosen by field and domain as in the JAX package), a host verifier (``hashlib`` and Python ints, no native
 library), and the zero-knowledge view of a proof with its simulator
 (``succinct_view``, ``simulate_succinct_view``).
 
@@ -29,22 +31,30 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..commit import lwe
 from ..commit.lwe import Commitment, LweContext
 from ..core import field
 from ..core.errors import DomainError, SerializationError
 from ..device import resolve
+from ..ops.modarith import GOLDILOCKS
+from ..r1cs import poly as polyops
 from ..r1cs.domain import ROOTS
 from ..r1cs.r1cs import R1CS
-from ..transcript.challenge import Challenge
+from ..transcript.challenge import Challenge, derive_dual
 from ..utils.artifacts import circuit_digest
 from ..utils.chacha import ChaCha20Rng
 from .fri import (
     FriParams,
     FriProof,
     FriTranscript,
+    batch_inverse,
+    commit_codeword_group,
     coset_offset,
+    coset_points,
+    fri_prove,
     fri_supported,
     fri_verify,
+    lde,
     max_codeword_size,
     root_of_order,
 )
@@ -216,17 +226,93 @@ def _check_instance(r1cs: R1CS, params: FriParams, mask_len: int) -> Tuple[int, 
     return d_bound, n0, root_of_order(q, n0)
 
 
+def _gl_frontend_applicable(r1cs: R1CS) -> bool:
+    """Whether the circuit takes the device route: Goldilocks, on the roots
+    domain of a power of two m >= 2 with omega = root_of_order(q, m)."""
+    m = r1cs.m
+    if r1cs.modulus != GOLDILOCKS or r1cs.domain.kind != ROOTS or m & (m - 1) or m < 2:
+        return False
+    return root_of_order(GOLDILOCKS, m) == r1cs.domain.omega % GOLDILOCKS
+
+
+def _gl_trim(p: np.ndarray) -> np.ndarray:
+    """p without its trailing zero coefficients (at least one left)."""
+    nz = np.nonzero(p)[0]
+    return p[: int(nz[-1]) + 1 if len(nz) else 1]
+
+
+def _prove_host(r1cs: R1CS, witness: Sequence[int], ctx: LweContext, seed: int,
+                params: FriParams, rng=None) -> SuccinctProofR1CS:
+    """One kind-7 proof on the host (Python ints; ``proof.fri``'s host
+    prover), the JAX package's route off the fast front end. ``rng`` (a
+    ChaCha20 generator) makes it zero-knowledge."""
+    q, m = r1cs.modulus, r1cs.m
+    mask_len = zk_mask_len(params) if rng is not None else 0
+    d_bound, n0, omega_n = _check_instance(r1cs, params, mask_len)
+    offset = coset_offset(q)
+    q_coeffs = r1cs.compute_quotient_poly(witness)  # validates the witness
+    a_poly, b_poly, c_poly = r1cs.interpolations(witness)
+    if rng is not None:
+        rho_a, rho_b, rho_c = ([rng.next_u64() % q for _ in range(mask_len)] for _ in range(3))
+        z_h = r1cs.domain.vanishing_poly()
+        add, mul = polyops.poly_add, polyops.poly_mul
+        a_t = add(a_poly, mul(z_h, rho_a, q), q)
+        b_t = add(b_poly, mul(z_h, rho_b, q), q)
+        c_t = add(c_poly, mul(z_h, rho_c, q), q)
+        q_t = add(q_coeffs, mul(rho_a, b_poly, q), q)
+        q_t = add(q_t, mul(rho_b, a_poly, q), q)
+        q_t = add(q_t, mul(z_h, mul(rho_a, rho_b, q), q), q)
+        q_t = polyops.poly_sub(q_t, rho_c, q)
+    else:
+        a_t, b_t, c_t, q_t = a_poly, b_poly, c_poly, q_coeffs
+    polys = [a_t, b_t, c_t, q_t]
+    codewords = [lde(p, n0, offset, omega_n, q) for p in polys]
+    tree = commit_codeword_group(codewords)
+    root = tree.root
+    # the lattice commitment is to the unmasked Q
+    commitment_q, _op = lwe.commit(ctx, q_coeffs, seed)
+    comm_words = np.concatenate([statement_binding_words(commitment_q, r1cs),
+                                 np.array(_roots_to_words([root]), dtype=np.uint64)])
+    ch_alpha, ch_beta = derive_dual(r1cs.public_inputs(witness), comm_words, q)
+    alpha, beta = ch_alpha.alpha, ch_beta.alpha
+    evals = [polyops.poly_eval(p, x, q) for x in (alpha, beta) for p in polys]
+    tr = _seed_fri_transcript(q, m, mask_len, params, d_bound, [root], alpha, beta, evals)
+    lam = tr.challenge_field(q, b"fri-lambda")
+
+    # the DEEP quotient sum_k lam^2k (f_k - v_k)/(x - alpha) + lam^(2k+1) (f_k - w_k)/(x - beta)
+    xs = coset_points(offset, omega_n, n0, q)
+    inv_a = batch_inverse([(x - alpha) % q for x in xs], q)
+    inv_b = batch_inverse([(x - beta) % q for x in xs], q)
+    g = [0] * n0
+    lam_pow = 1
+    for k, cw in enumerate(codewords):
+        cw = [int(v) for v in cw]
+        va, vb = evals[k], evals[4 + k]
+        lam2 = lam_pow * lam % q
+        for i in range(n0):
+            g[i] = (g[i] + lam_pow * ((cw[i] - va) % q) % q * inv_a[i]
+                    + lam2 * ((cw[i] - vb) % q) % q * inv_b[i]) % q
+        lam_pow = lam2 * lam % q
+    fri_proof = fri_prove(g, [(codewords, tree)], offset, omega_n, q, params, tr)
+    return SuccinctProofR1CS(
+        commitment_q, root, ch_alpha, ch_beta, *evals, fri=fri_proof, m=m,
+        mask_len=mask_len, log_blowup=params.log_blowup, num_queries=params.num_queries,
+        final_len=params.final_len, modulus=q)
+
+
 def prove_r1cs_succinct(r1cs: R1CS, witness: Sequence[int], ctx: LweContext, seed: int,
                         zk: bool = False, fri_params: Optional[FriParams] = None,
                         blinding_seed: Optional[int] = None, rng=None,
                         device_lde: bool = False, device="cuda") -> SuccinctProofR1CS:
     """One kind-7 proof: the batch prover on a batch of one (the JAX
-    package pins the two byte-equal). The parameters are the JAX package's,
-    in its order, then ``device``. ``zk=True`` draws the masks from ``rng``,
+    package pins the two byte-equal), which takes the device route for a
+    circuit of ``_gl_frontend_applicable`` and the host route otherwise.
+    The parameters are the JAX package's, in its order, then ``device``.
+    ``zk=True`` draws the masks from ``rng``,
     else from ChaCha20 seeded with ``blinding_seed``, else from OS entropy:
     rho_A, rho_B, rho_C in turn, ``mask_len`` draws ``next_u64() % q`` each.
     ``device_lde`` chooses a route in the JAX package whose bytes are the
-    same either way; the port has the one route."""
+    same either way, and is ignored."""
     from .succinct_batch import _prove_batch
 
     params = fri_params or FriParams()

@@ -14,6 +14,14 @@ prover ``_prove_pipelined`` and its service ``prove_r1cs_succinct_stream``:
     device  DEEP combination, folds, kernel K per layer    (proof.fri_device)
     host    query assembly from one pull
 
+That is the route of Goldilocks circuits on the power-of-two roots domain
+(``succinct._gl_frontend_applicable``). Every other circuit (the 44-bit
+field, the healthcare prime, other Goldilocks domains) is proved statement
+by statement on the host (``succinct._prove_host``), as the JAX package
+does. At ring degree n < m the device front end runs without kernel R: the
+quotients come back in the front end's one pull and are committed on the
+host (``succinct_device.finish_quotient_lde``).
+
 With ``pipeline_chunk`` the batch runs in chunks, one after another.
 Proofs depend only on (witness, seed, blinding seed), so the bytes are the
 unchunked prover's. On an H100 chunking is slower than one batch (each
@@ -32,18 +40,19 @@ import numpy as np
 import torch
 
 from ..commit.lwe import LweContext
-from ..core.errors import DomainError, InvalidDimensionsError
+from ..core.errors import InvalidDimensionsError
 from ..device import resolve
 from ..ops import modarith
-from ..r1cs.domain import ROOTS
 from ..r1cs.r1cs import R1CS
 from ..transcript.challenge import derive_dual
 from ..utils.chacha import ChaCha20Rng
 from . import fri_device
-from .fri import FriParams, coset_offset, root_of_order
+from .fri import FriParams, coset_offset
 from .succinct import (
     SuccinctProofR1CS,
     _check_instance,
+    _gl_frontend_applicable,
+    _prove_host,
     _roots_to_words,
     _seed_fri_transcript,
     statement_binding_words,
@@ -57,18 +66,6 @@ __all__ = ["prove_r1cs_succinct_batch", "prove_r1cs_succinct_stream"]
 _SEED_FOLD = 0x9E3779B97F4A7C15
 #: salt separating the default blinding-seed stream from the proof seeds
 _BLIND_SALT = 0xA5A5A5A55A5A5A5A
-
-
-def _check_circuit(r1cs: R1CS) -> None:
-    """The port proves kind 7 over Goldilocks roots-domain circuits (the JAX
-    package's vectorised front end); the other fields' routes are ROADMAP
-    A.3b."""
-    m = r1cs.m
-    if (r1cs.modulus != modarith.GOLDILOCKS or r1cs.domain.kind != ROOTS
-            or m < 2 or m & (m - 1)
-            or root_of_order(r1cs.modulus, m) != r1cs.domain.omega % r1cs.modulus):
-        raise DomainError("the port proves kind 7 over Goldilocks circuits with the "
-                          "power-of-two roots domain only (other fields: ROADMAP A.3b)")
 
 
 def _embed(r1cs: R1CS, witnesses) -> np.ndarray:
@@ -192,10 +189,13 @@ def _prove_batch(r1cs: R1CS, witnesses, ctx: LweContext, seeds, params: FriParam
                  mask_rngs, pipeline_chunk: Optional[int], dev: torch.device
                  ) -> List[SuccinctProofR1CS]:
     """Kind-7 proofs of a batch; ``mask_rngs`` (one generator per
-    statement) makes them zero-knowledge."""
+    statement) makes them zero-knowledge. A circuit off the device route is
+    proved on the host, statement by statement."""
     if len(witnesses) == 0:
         return []
-    _check_circuit(r1cs)
+    if not _gl_frontend_applicable(r1cs):
+        return [_prove_host(r1cs, w, ctx, seed, params, rng)
+                for w, seed, rng in zip(witnesses, seeds, mask_rngs or [None] * len(seeds))]
     zk = mask_rngs is not None
     masks = _draw_masks(mask_rngs, zk_mask_len(params), r1cs.modulus) if zk else None
     s = len(witnesses)
@@ -214,7 +214,8 @@ def prove_r1cs_succinct_batch(r1cs: R1CS, witnesses: Sequence[Sequence[int]],
     """Kind-7 proofs for a batch of witnesses of one circuit, one commit
     seed each; byte-identical to the JAX package's
     ``prove_r1cs_succinct_batch`` and ``prove_r1cs_succinct``. Runs on the
-    card unless ``device="cpu"`` (every kernel as its plain twin).
+    card unless ``device="cpu"`` (every kernel as its plain twin); a circuit
+    off the device route is proved on the host either way.
 
     The parameters are the JAX package's, in its order, then ``device``.
     ``zk=True`` needs one blinding seed per witness: statement i's masks
@@ -255,10 +256,10 @@ def prove_r1cs_succinct_stream(r1cs: R1CS, witnesses, ctx: LweContext, seed: int
     bytes. With ``store`` (a ``ProofStore``) each proof is saved under the
     label ``"{label_prefix}-{index}"`` as it is yielded, and a statement
     the store holds is served from it, byte-identical, so a cut run resumes.
-    ``witness_bind=True`` (kind 9) is not ported (ROADMAP A.4)."""
+    ``witness_bind=True`` (kind 9) is not ported (ROADMAP A.4b)."""
     if witness_bind:
         raise NotImplementedError("the committed-witness stream (witness_bind=True, kind 9) "
-                                  "is not ported yet (ROADMAP A.4)")
+                                  "is not ported yet (ROADMAP A.4b)")
     params = fri_params or FriParams()
     params.validate()
     dev = resolve(device)

@@ -19,7 +19,10 @@ masks of its ``succinct_batch._gl_batch_frontend``:
 
 ``quotient_lde_dispatch`` enqueues all of it on the current stream;
 ``finish_quotient_lde`` pulls the validity flags, the commitment words and
-the roots in one transfer. The
+the roots in one transfer. At ring degree n < m kernel R does not run:
+the pull carries the quotients instead, and each, without its trailing
+zeros, is committed on the host (``commit.lwe.commit_batch``), as the JAX
+package's unfused branch does. The
 codewords, polynomials and trees stay on the device. ``eval_device``
 evaluates A, B, C, Q at the dual challenges without pulling them.
 """
@@ -32,9 +35,9 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..commit.lwe import Commitment, LweContext
+from ..commit.lwe import Commitment, LweContext, commit_batch
 from ..commit.lwe_device import DeviceCommitContext, commit_batch_chacha
-from ..core.errors import DomainError, InvalidWitnessError
+from ..core.errors import InvalidWitnessError
 from ..ops import modarith
 from ..ops.ntt import NttPlan
 from ..ops.ntt_batched import ntt_forward_batched, ntt_inverse_batched
@@ -42,6 +45,7 @@ from ..ops.ntt_large import NttLargePlan, ntt_forward_large, power_table
 from ..ops.quotient import QuotientPlan, quotient
 from ..pipeline import field_psi_for
 from .fri import root_of_order
+from .succinct import _gl_trim
 from .fri_device import DevForest, forest_from_levels, group_forest_levels
 
 P = modarith.GOLDILOCKS
@@ -160,7 +164,10 @@ class Dispatched:
     polys: torch.Tensor  # (S, 4, width) A, B, C, Q (masked under ZK)
     levels: List[torch.Tensor]  # the group forest, leaf level first
     valid: torch.Tensor  # (S,) bool, kernel Q's a b = c flags
-    commitment: torch.Tensor  # (S, n) words of the commitments to Q
+    commitment: Optional[torch.Tensor]  # (S, n) words of the commitments to Q
+    # n < m: the quotients (S, m) and what their host commitment takes
+    q_poly: Optional[torch.Tensor] = None
+    host_commit: Optional[Tuple[LweContext, list]] = None
 
 
 def quotient_lde_dispatch(az: torch.Tensor, bz: torch.Tensor, cz: torch.Tensor, n0: int,
@@ -169,15 +176,9 @@ def quotient_lde_dispatch(az: torch.Tensor, bz: torch.Tensor, cz: torch.Tensor, 
     """Enqueue the front end of (S, m) constraint evaluations on the
     current stream. ``masks`` (3, S, L) uint64 (rho_A, rho_B, rho_C) makes
     it the zero-knowledge front end; the commitment is to the unmasked Q
-    either way.
-
-    Raises DomainError if the ring degree n is below m: the JAX package
-    takes its device front end only for n >= m, and its host route for
-    n < m is not ported (ROADMAP A.3b)."""
+    either way; below m (the ring degree n) it is left to
+    ``finish_quotient_lde``."""
     s, m = az.shape
-    if ctx.n < m:
-        raise DomainError(f"ring degree {ctx.n} < m = {m}: the device front end commits to "
-                          "the whole quotient in one ring element (n < m is ROADMAP A.3b)")
     dev = az.device
     plan = frontend_plan(m, n0, offset, dev)
     q_poly, a_poly, b_poly, c_poly, valid = quotient(plan.qplan, az, bz, cz)
@@ -190,23 +191,32 @@ def quotient_lde_dispatch(az: torch.Tensor, bz: torch.Tensor, cz: torch.Tensor, 
     lde = ntt_forward_large(plan.lde, padded.reshape(4 * s, n0),
                             pre=plan.twist).reshape(s, 4, n0)
     levels = group_forest_levels(lde)
+    if ctx.n < m:
+        return Dispatched(lde=lde, polys=polys, levels=levels, valid=valid, commitment=None,
+                          q_poly=q_poly, host_commit=(ctx, list(seeds)))
     commitment = commit_batch_chacha(device_commit_context(ctx, dev), q_poly, ctx, seeds)
     return Dispatched(lde=lde, polys=polys, levels=levels, valid=valid, commitment=commitment)
 
 
 def finish_quotient_lde(d: Dispatched, first: int = 0) -> Tuple[List[Commitment], DevForest]:
-    """Pull a dispatched front end's flags, commitment words and roots in
-    one transfer: (commitments, the group forest). Raises
-    InvalidWitnessError if some a_t b_t != c_t, naming the witness by its
-    index plus ``first``."""
-    s, n = d.commitment.shape
-    pack = modarith.to_u64(torch.cat([d.valid.to(torch.int64), d.commitment.reshape(-1),
+    """Pull a dispatched front end's flags, commitment words (or, at n < m,
+    quotients) and roots in one transfer: (commitments, the group forest).
+    Raises InvalidWitnessError if some a_t b_t != c_t, naming the witness
+    by its index plus ``first``; at n < m, CommitmentError for a quotient
+    longer than the ring degree."""
+    rows = d.commitment if d.commitment is not None else d.q_poly
+    s, n = rows.shape
+    pack = modarith.to_u64(torch.cat([d.valid.to(torch.int64), rows.reshape(-1),
                                       d.levels[-1][:, 0].reshape(-1)]))
     valid, words = pack[:s], pack[s: s + s * n].reshape(s, n)
     if not valid.all():
         bad = first + int(np.flatnonzero(valid == 0)[0])
         raise InvalidWitnessError(f"witness {bad} does not satisfy R1CS constraints")
     forest = forest_from_levels(d.levels, root_words=pack[s + s * n:].reshape(s, 4))
+    if d.commitment is None:
+        ctx, seeds = d.host_commit
+        commitments, _openings = commit_batch(ctx, [_gl_trim(row) for row in words], seeds)
+        return commitments, forest
     return [Commitment(words[i].copy()) for i in range(s)], forest
 
 

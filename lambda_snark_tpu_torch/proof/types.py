@@ -5,8 +5,9 @@
     magic "LSNKTPU1" | kind u8 | modulus u64 | body
 
 Kinds 1 (simple), 2 (R1CS, v1 transcript), 6 (R1CS, v3 transcript bound to
-the circuit digest) and 3 (R1CS, ZK) live here; kind 7 is
-``proof.succinct``. The JAX package and the port read each other's bytes.
+the circuit digest) and 3 (R1CS, ZK) live here; kinds 4 and 5 are
+``proof.compact``, kind 7 ``proof.succinct`` and kind 8
+``proof.aggregate``. The JAX package and the port read each other's bytes.
 """
 
 from __future__ import annotations
@@ -27,14 +28,12 @@ _KIND_R1CS = 2
 _KIND_R1CS_ZK = 3
 _KIND_R1CS_V3 = 6  # the v1 body, circuit-digest-bound transcript
 _KIND_SUCCINCT = 7
+_KIND_AGGREGATE = 8
 
 #: Kinds the JAX package decodes and the port does not yet, with the
 #: ROADMAP queue item that ports them.
 _NOT_PORTED = {
-    4: "compact proofs (ROADMAP A.3b, proof/compact.py)",
-    5: "compact ZK proofs (ROADMAP A.3b, proof/compact.py)",
-    8: "aggregated proofs (ROADMAP A.4, proof/aggregate.py)",
-    9: "committed-witness proofs (ROADMAP A.4, proof/succinct_witness.py)",
+    9: "committed-witness proofs (ROADMAP A.4b, proof/succinct_witness.py)",
 }
 
 
@@ -59,9 +58,13 @@ class _Reader:
         return b
 
     def u64(self) -> int:
+        if self.off + 8 > len(self.data):
+            raise SerializationError("truncated proof data (u64)")
         return struct.unpack("<Q", self.bytes_(8))[0]
 
     def u8(self) -> int:
+        if self.off >= len(self.data):
+            raise SerializationError("truncated proof data (u8)")
         return self.bytes_(1)[0]
 
     def words(self) -> List[int]:
@@ -220,9 +223,9 @@ class ProofR1csZk:
 
 
 def deserialize_any(data: bytes):
-    """Decode proof bytes by their kind byte: 1, 2, 3, 6 and 7. The kinds the
-    port does not decode yet raise SerializationError naming the queue item
-    that ports them; bad magic and unknown kinds raise as in the JAX
+    """Decode proof bytes by their kind byte: 1 to 8. Kind 9, which the port
+    does not decode yet, raises SerializationError naming the queue item
+    that ports it; bad magic and unknown kinds raise as in the JAX
     package."""
     if len(data) < 9 or data[:8] != _MAGIC:
         raise SerializationError("bad proof magic")
@@ -233,12 +236,20 @@ def deserialize_any(data: bytes):
         return ProofR1CS.from_bytes(data)
     if kind == _KIND_R1CS_ZK:
         return ProofR1csZk.from_bytes(data)
+    # the proof modules are imported here, as the JAX package does: they
+    # import utils.artifacts, which imports this module
+    if kind in (4, 5):
+        from .compact import CompactProofR1CS
+
+        return CompactProofR1CS.from_bytes(data)
     if kind == _KIND_SUCCINCT:
-        # imported here, as the JAX package does: proof.succinct imports
-        # utils.artifacts, which imports this module
         from .succinct import SuccinctProofR1CS
 
         return SuccinctProofR1CS.from_bytes(data)
+    if kind == _KIND_AGGREGATE:
+        from .aggregate import AggregatedProofR1CS
+
+        return AggregatedProofR1CS.from_bytes(data)
     if kind in _NOT_PORTED:
         raise SerializationError(f"proof kind {kind}: {_NOT_PORTED[kind]} are not ported yet")
     raise SerializationError(f"unknown proof kind {kind}")

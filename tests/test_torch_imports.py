@@ -98,7 +98,8 @@ def test_host_golden_path_is_walked_by_the_import_rule(name):
 
 
 @pytest.mark.parametrize("entry", ["resolve", "commit_context", "prove", "succinct_batch",
-                                   "succinct", "succinct_zk", "succinct_stream"])
+                                   "succinct", "succinct_zk", "succinct_stream", "aggregate",
+                                   "succinct_host_route"])
 def test_entry_points_default_to_cuda(entry):
     _no_card()
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -121,8 +122,47 @@ def test_entry_points_default_to_cuda(entry):
                                                blinding_seeds=[2])
             elif entry == "succinct_stream":
                 port.prove_r1cs_succinct_stream(r1cs, [witness], _ctx(), 1)
+            elif entry == "aggregate":
+                port.prove_r1cs_succinct_aggregate(r1cs, [witness], _ctx(), [1])
+            elif entry == "succinct_host_route":
+                # a 44-bit circuit proves on the host, but the entry point
+                # still resolves its device first
+                r1cs = port.multiplication_gates_circuit(8, Q)
+                port.prove_r1cs_succinct(r1cs, port.multiplication_gates_witness(8, Q),
+                                         _ctx(), 1)
             else:
                 port.prove_r1cs_succinct_batch(r1cs, [witness], _ctx(), [1])
+
+
+SLICE_MODULES = ["proof.aggregate", "proof.compact", "proof.checks"]
+
+
+@pytest.mark.parametrize("name", SLICE_MODULES)
+def test_slice_modules_are_walked_by_the_import_rule(name):
+    """The kind-8, compact and phase-2 modules are among those that
+    ``test_every_module_imports_without_jax`` imports; the host-only ones
+    name no device."""
+    assert f"lambda_snark_tpu_torch.{name}" in _port_modules()
+    with open(os.path.join(REPO, "lambda_snark_tpu_torch", *name.split(".")) + ".py") as f:
+        tree = ast.parse(f.read())
+    params = [a.arg for node in ast.walk(tree) if isinstance(node, ast.FunctionDef)
+              for a in node.args.args + node.args.kwonlyargs]
+    assert ("device" in params) == (name == "proof.aggregate")
+
+
+@pytest.mark.parametrize("kind", range(1, 10))
+def test_deserialize_any_refuses_only_kind_9(kind):
+    """Kinds 1 to 8 decode (a body of zeros fails as malformed, not as
+    unported); kind 9 is refused naming ROADMAP A.4b."""
+    blob = b"LSNKTPU1" + bytes([kind]) + bytes(64)
+    if kind == 9:
+        with pytest.raises(port.SerializationError, match="kind 9: .*ROADMAP A.4b.*not ported"):
+            port.deserialize_any(blob)
+        return
+    try:
+        port.deserialize_any(blob)
+    except port.SerializationError as exc:
+        assert "not ported" not in str(exc)
 
 
 def _run_smoke(cwd):

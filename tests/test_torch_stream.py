@@ -120,9 +120,9 @@ def test_store_records_kinds_it_cannot_load(setup, tmp_path):
     blob = os.path.join(store.root, store._manifest[key]["proof_blob"] + ".proof")
     with open(blob, "r+b") as f:
         f.seek(8)
-        f.write(bytes([8]))  # now an aggregated (kind-8) proof
+        f.write(bytes([9]))  # now a committed-witness (kind-9) proof
     assert store.verify_all(pr) == {key: False}
-    assert "kind 8" in store.failures[key] and "A.4" in store.failures[key]
+    assert "kind 9" in store.failures[key] and "A.4b" in store.failures[key]
 
 
 def test_entry_matches_jax_entry():

@@ -238,20 +238,40 @@ def test_invalid_witness_rejected(ctxs):
                                        fri_params=FriParams(*FAST), device="cpu")
 
 
-def test_non_goldilocks_circuit_rejected(ctxs):
-    _jax_ctx, ours = ctxs
-    _jr, pr, ws = _instance(16, Q45)
-    with pytest.raises(DomainError):
+def test_non_goldilocks_circuit_rejected():
+    """A circuit off the Goldilocks device route proves on the host, as the
+    JAX package's batch does (the 44-bit field here); one over a field with
+    no 2-adic subgroup is rejected by both packages."""
+    jax_ctx, ours = _ctxs(Q45)
+    jr, pr, ws = _instance(16, Q45)
+    theirs = jax_prove(jr, ws, jax_ctx, SEEDS, fri_params=JaxFriParams(*FAST))
+    mine = port.prove_r1cs_succinct_batch(pr, ws, ours, SEEDS, fri_params=FriParams(*FAST),
+                                          device="cpu")
+    assert [p.to_bytes() for p in mine] == [p.to_bytes() for p in theirs]
+    composite = 17592186044417  # the test-vector modulus: no registered subgroup
+    jax_ctx, ours = _ctxs(composite)
+    jr, pr, ws = _instance(4, composite)
+    with pytest.raises(Exception) as err:
+        jax_prove(jr, ws, jax_ctx, SEEDS, fri_params=JaxFriParams(*FAST))
+    assert type(err.value).__name__ == "DomainError"
+    with pytest.raises(DomainError) as mine:
         port.prove_r1cs_succinct_batch(pr, ws, ours, SEEDS, fri_params=FriParams(*FAST),
                                        device="cpu")
+    assert str(mine.value) == str(err.value)
 
 
 def test_ring_degree_below_m_rejected():
-    _jax_ctx, small = _ctxs(n=32)
-    _jr, pr, ws = _instance(64)
-    with pytest.raises(DomainError, match="ring degree 32"):
+    """At ring degree n < m a random witness's quotient (m - 1 words) does
+    not fit one ring element: both packages raise CommitmentError."""
+    jax_ctx, small = _ctxs(n=32)
+    jr, pr, ws = _instance(64)
+    with pytest.raises(Exception) as theirs:
+        jax_prove(jr, ws, jax_ctx, SEEDS, fri_params=JaxFriParams(*FAST))
+    assert type(theirs.value).__name__ == "CommitmentError"
+    with pytest.raises(port.CommitmentError, match="message length 63 exceeds ring degree 32"):
         port.prove_r1cs_succinct_batch(pr, ws, small, SEEDS, fri_params=FriParams(*FAST),
                                        device="cpu")
+    assert str(theirs.value) == "message length 63 exceeds ring degree 32"
 
 
 @pytest.mark.parametrize("base,n,scale", [(7, 1, 1), (GL - 2, 37, 5), (3, 64, GL - 1)])

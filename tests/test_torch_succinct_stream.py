@@ -146,7 +146,7 @@ def test_store_resume_byte_identical(tmp_path, setup_):
 
 def test_witness_bind_not_ported(setup_):
     _jax_ctx, ours, _jr, pr = setup_
-    with pytest.raises(NotImplementedError, match="A.4"):
+    with pytest.raises(NotImplementedError, match="A.4b"):
         port.prove_r1cs_succinct_stream(pr, [], ours, 1, witness_bind=True, device="cpu")
 
 

@@ -26,7 +26,7 @@ from lambda_snark_tpu.proof.succinct_batch import prove_r1cs_succinct_batch as j
 from lambda_snark_tpu.utils.chacha import ChaCha20Rng as JaxRng
 
 import lambda_snark_tpu_torch as port
-from lambda_snark_tpu_torch.core.errors import DomainError, InvalidDimensionsError
+from lambda_snark_tpu_torch.core.errors import InvalidDimensionsError
 from lambda_snark_tpu_torch.ops import modarith
 from lambda_snark_tpu_torch.proof import succinct_device
 from lambda_snark_tpu_torch.proof.fri import FriParams, coset_offset
@@ -219,11 +219,18 @@ def test_zk_needs_one_blinding_seed_per_witness(ctxs):
 
 
 def test_zk_ring_degree_below_m_names_its_queue_item():
-    _jax_ctx, small = _ctxs(n=8)
-    _jr, pr, ws = _instance(16)
-    with pytest.raises(DomainError, match="A.3b"):
+    """ZK at ring degree n < m commits to the unmasked, trimmed Q on the
+    host, as the JAX package does: a random witness's quotient is too long,
+    and both raise the same CommitmentError."""
+    jax_ctx, small = _ctxs(n=8)
+    jr, pr, ws = _instance(16)
+    with pytest.raises(Exception) as theirs:
+        jax_prove_one(jr, ws[0], jax_ctx, 1, True, JaxFriParams(*FAST), blinding_seed=2)
+    assert type(theirs.value).__name__ == "CommitmentError"
+    with pytest.raises(port.CommitmentError) as mine:
         port.prove_r1cs_succinct(pr, ws[0], small, 1, True, FriParams(*FAST), blinding_seed=2,
                                  device="cpu")
+    assert str(mine.value) == str(theirs.value)
 
 
 def test_pipeline_chunk_ignored_under_zk(proved):

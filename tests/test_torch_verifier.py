@@ -19,6 +19,7 @@ from lambda_snark_tpu.proof.types import deserialize_any as jax_deserialize
 from lambda_snark_tpu.prover_batched import prove_r1cs_stream as jax_stream
 from lambda_snark_tpu.utils import artifacts as jax_artifacts
 from lambda_snark_tpu import verifier as jax_verifier
+from lambda_snark_tpu.proof import checks as jax_checks
 
 import lambda_snark_tpu_torch as port
 from lambda_snark_tpu_torch import prover_batched, verifier
@@ -91,8 +92,18 @@ def test_jax_reads_port_bytes(setup, zk):
 
 @pytest.mark.parametrize("kind", [4, 5, 8, 9])
 def test_deserialize_any_refuses_kinds_not_ported(kind):
-    with pytest.raises(SerializationError, match=f"proof kind {kind}: .*ROADMAP A"):
-        port.deserialize_any(b"LSNKTPU1" + bytes([kind]) + bytes(64))
+    """Kind 9 is refused naming its queue item; kinds 4, 5 and 8 are
+    decoded, so a body of zeros is refused as the JAX package refuses it."""
+    blob = b"LSNKTPU1" + bytes([kind]) + bytes(64)
+    if kind == 9:
+        with pytest.raises(SerializationError, match="proof kind 9: .*ROADMAP A.4b"):
+            port.deserialize_any(blob)
+        return
+    with pytest.raises(J.SerializationError) as theirs:
+        jax_deserialize(blob)
+    with pytest.raises(SerializationError) as mine:
+        port.deserialize_any(blob)
+    assert str(mine.value) == str(theirs.value)
 
 
 @pytest.mark.parametrize("blob,message", [
@@ -187,6 +198,12 @@ SIGNATURES = [
     (port.verify_r1cs_zk, jax_verifier.verify_r1cs_zk),
     (succinct.verify_r1cs_succinct, J.verify_r1cs_succinct),
     (port.deserialize_any, jax_deserialize),
+    (port.prove_r1cs_succinct_aggregate, J.prove_r1cs_succinct_aggregate),
+    (port.verify_r1cs_succinct_aggregate, J.verify_r1cs_succinct_aggregate),
+    (port.prove_r1cs_compact, J.prove_r1cs_compact),
+    (port.verify_r1cs_compact, J.verify_r1cs_compact),
+    (port.prove_r1cs_checked, jax_checks.prove_r1cs_checked),
+    (port.verify_r1cs_checked, jax_checks.verify_r1cs_checked),
     (artifacts.statement_digest, jax_artifacts.statement_digest),
     (port.ProofStore.save, jax_artifacts.ProofStore.save),
     (port.ProofStore.verify_all, jax_artifacts.ProofStore.verify_all),
@@ -222,11 +239,17 @@ def test_signature_matches_jax(ours, theirs):
 
 
 def test_zk_kind7_refused_with_its_queue_item(setup):
-    """ZK kind 7 is ported for Goldilocks circuits; over the 44-bit field
-    it is refused naming the queue item that holds the other fields."""
-    _jax_ctx, _jr, _ctx, pr, ws = setup
-    with pytest.raises(port.DomainError, match="A.3b"):
-        port.prove_r1cs_succinct(pr, ws[0], setup[2], 1, True, blinding_seed=2, device="cpu")
-    with pytest.raises(port.DomainError, match="A.3b"):
-        port.prove_r1cs_succinct_batch(pr, ws[:1], setup[2], [1], True, blinding_seeds=[2],
-                                       device="cpu")
+    """ZK kind 7 over the 44-bit field, once refused, now takes the host
+    route: the single and the batch prover give the JAX package's bytes,
+    and the proofs verify."""
+    jax_ctx, jr, ctx, pr, ws = setup
+    fast = dict(fri_params=JaxFriParams(3, 8))
+    theirs = J.prove_r1cs_succinct(jr, ws[0], jax_ctx, 1, True, blinding_seed=2, **fast)
+    mine = port.prove_r1cs_succinct(pr, ws[0], ctx, 1, True, port.FriParams(3, 8),
+                                    blinding_seed=2, device="cpu")
+    assert mine.to_bytes() == theirs.to_bytes()
+    batch = port.prove_r1cs_succinct_batch(pr, ws[:1], ctx, [1], True, port.FriParams(3, 8),
+                                           blinding_seeds=[2], device="cpu")
+    assert batch[0].to_bytes() == theirs.to_bytes()
+    assert port.verify_r1cs_succinct(mine, pr.public_inputs(ws[0]), pr,
+                                     min_params=port.FriParams(3, 8))
