@@ -9,8 +9,8 @@ Phases, each printing one flushed line with the seconds since start:
 2. the build of every CUDA kernel from ``lambda_snark_tpu_torch/csrc``
    (one ``nvcc`` per source, started together), each kernel function's
    registers and spills, and the SASS instruction mix of kernel T's
-   ``dft_pass``, kernel K's forest kernel (G = 1 and 4, the kind-7 path's)
-   and kernels Q and R at each cluster size;
+   ``dft_pass``, kernel K's forest kernel (G = 1 and 4, the kind-7 path's;
+   2, 5 and 6, kind 9's) and kernels Q and R at each cluster size;
 3. kernel Q against its plain PyTorch twin at B = 256, bit-exact: the 44-bit
    field at m = 4096 (plain prover) and m = 2048 (ZK prover), Goldilocks at
    m = 4096, each at the cluster size ``kernels.cluster_size`` picks;
@@ -111,11 +111,24 @@ Phases, each printing one flushed line with the seconds since start:
     the card's front end, the quotient committed on the host), compact
     kinds 4 and 5 and the phase-2 checked proof on the healthcare circuit;
     each verifies and a tampered one is rejected; host seconds per route;
+24. ``prove_r1cs_witness`` (kind 9) at the JAX benchmark's shape: m = 2^12
+    squaring gates (M = 2^14), ring n = m, k = 1, default FriParams, plain
+    (n0 = 2^18) and ZK (n0 = 2^19): the proof verifies after
+    ``deserialize_any``, a flipped FRI path byte, a flipped gamma
+    evaluation and the public input [2] are rejected, the bytes equal a
+    ``device="cpu"`` run, kernels Q, R, T and K launched (counts per proof
+    printed), the median of five proofs, proofs/s, bytes, the idle share
+    of one profiled proof and a host-clock breakdown by stage (median of
+    three staged proofs); ``prove_r1cs_witness_batch`` at S = 4 and the
+    ``witness_bind`` stream at m = 2^10 (10 witnesses in batches of 4, a
+    ``ProofStore`` resume): every proof verifies, the stream's bytes are one
+    batch's; then kernels K, T, Q and R at every shape each run launched
+    them at, as in 18;
 
 then the JSON lines: kind 7 at m = 2^13 (proofs/s, breakdown, idle share),
 kind 7 at m = 2^14, the streams, ZK kind 7, the pipelined prover, the
 kind-7 stream, the host path, kind 8 (one line per shape), the host routes,
-and the ``kernels`` line: for each kernel
+kind 9, and the ``kernels`` line: for each kernel
 on each path its time, its plain twin's time, its bound and its launches in
 that path's run, counted per C entry (the four-step NTT's entry launches
 two kernels, one per pass) and, for kernels K and T on the m = 2^14 kind-7
@@ -205,6 +218,12 @@ STREAM7_COUNT, STREAM7_BATCH = 40, 16
 # (label, m, statements, zk, statements of the CPU comparison)
 KIND8 = (("agg13", 1 << 13, 16, False, 2), ("agg13_zk", 1 << 13, 16, True, 2),
          ("agg10", 1 << 10, 128, False, 8))
+# kind 9 at the JAX benchmark's shape (bench.py:627-660): m = 2^12 squaring
+# gates (n = 2m + 1 variables, so M = 2^14), ring n = m, k = 1, default
+# FriParams; the batch at S = 4; the witness_bind stream at m = 2^10, 10
+# witnesses in batches of 4
+KIND9_M, KIND9_BATCH = 1 << 12, 4
+KIND9_STREAM_M, KIND9_STREAM_COUNT, KIND9_STREAM_BATCH = 1 << 10, 10, 4
 
 
 def sass_mix(path: str) -> dict:
@@ -701,7 +720,7 @@ def kind7_phases(np, torch, lst, dev, rng, hold, report):
         torch.cuda.synchronize()
         parts["deep_and_fri_on_card_s"] = time.time() - t
         t = time.time()
-        fri_proofs = fri_device.fri_open(lde, forest, committed, finals, idx)
+        fri_proofs = fri_device.fri_open([(lde, forest)], committed, finals, idx)
         again = [SuccinctProofR1CS(
             comms[i], forest.roots[i], *chals[i], *(int(v) for v in evals[i]),
             fri=fri_proofs[i], m=m, mask_len=0, log_blowup=params.log_blowup,
@@ -1413,6 +1432,212 @@ def kind8_phase(np, torch, lst, dev, rng, label: str, m: int, s: int, zk: bool, 
         device_idle_share=idle, top_kernels_ms=top)
 
 
+def reject_tampered_witness(proof, r1cs, label: str) -> None:
+    """A kind-9 proof with a flipped byte in a FRI path, one with a flipped
+    gamma evaluation, and the proof against the public input [2] must not
+    verify."""
+    import dataclasses
+
+    from lambda_snark_tpu_torch.proof.succinct_witness import verify_r1cs_witness
+
+    q0 = proof.fri.queries[0]
+    field_name = "layer_openings" if q0.layer_openings else "input_openings"
+    ops = getattr(q0, field_name)
+    bad_op = dataclasses.replace(ops[0], path=bytes([ops[0].path[0] ^ 1]) + ops[0].path[1:])
+    bad_q = dataclasses.replace(q0, **{field_name: (bad_op,) + ops[1:]})
+    tampered = [
+        (dataclasses.replace(proof, fri=dataclasses.replace(
+            proof.fri, queries=(bad_q,) + proof.fri.queries[1:])), [1]),
+        (dataclasses.replace(proof, evals_gamma=(proof.evals_gamma[0] ^ 1,)
+                             + proof.evals_gamma[1:]), [1]),
+        (proof, [2]),
+    ]
+    if any(verify_r1cs_witness(p, public, r1cs) for p, public in tampered):
+        raise RuntimeError(f"{label}: a tampered proof verified")
+
+
+# the kind-9 device route's stages, timed by host clock between
+# synchronisations (module, function name): the front end, the sumcheck,
+# the sum group's LDE and forest, DEEP, FRI and the queries
+KIND9_STAGES = (
+    ("succinct_witness_device", ("_draw_masks", "quotient_lde_dispatch", "finish_quotient_lde",
+                                 "eval_device", "_row_weights", "_sum_of_products",
+                                 "_fold_words", "ntt_forward_large", "eval_at")),
+    ("fri_device", ("group_forest_levels", "deep_combine_terms_device", "fri_commit_layers",
+                    "fri_open")))
+
+
+def kind9_stages(torch, prove, reps: int = 3) -> dict:
+    """Host-clock seconds of each ``KIND9_STAGES`` function in one proof
+    (median of ``reps`` staged proofs), a synchronisation before and after
+    each call, and the rest of the proof as "rest"."""
+    import importlib
+
+    runs = []
+    for _ in range(reps):
+        parts, saved = {}, []
+
+        def timed(fn, name):
+            def call(*args, **kwargs):
+                torch.cuda.synchronize()
+                t = time.time()
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                parts[name] = parts.get(name, 0.0) + time.time() - t
+                return out
+            return call
+
+        for module, names in KIND9_STAGES:
+            mod = importlib.import_module(f"lambda_snark_tpu_torch.proof.{module}")
+            for name in names:
+                saved.append((mod, name, getattr(mod, name)))
+                setattr(mod, name, timed(getattr(mod, name), name))
+        try:
+            torch.cuda.synchronize()
+            t = time.time()
+            prove()
+            total = time.time() - t
+        finally:
+            for mod, name, fn in saved:
+                setattr(mod, name, fn)
+        parts["rest"] = total - sum(parts.values())
+        parts["total"] = total
+        runs.append(parts)
+    return {k: sorted(r.get(k, 0.0) for r in runs)[reps // 2] for k in runs[0]}
+
+
+def kind9_phase(np, torch, lst, dev, rng, zk: bool):
+    """Phase 24: ``prove_r1cs_witness`` at m = 2^12 on the card. Returns
+    (one proof's launches, its launches per shape, the record)."""
+    from lambda_snark_tpu_torch import kernels
+    from lambda_snark_tpu_torch.proof.succinct_witness import _witness_geometry
+
+    label = "kind9_zk" if zk else "kind9"
+    m = KIND9_M
+    ctx, r1cs = kind7_context(lst, m), kind7_circuit(lst, m)
+    wit = kind7_witnesses(np, lst, dev, rng, 1, m)[0]
+
+    def prove(device="cuda"):
+        return lst.prove_r1cs_witness(r1cs, wit, ctx, 700, zk=zk, blinding_seed=900,
+                                      device=device)
+
+    prove()  # warm-up
+    t = time.time()
+    cpu = prove("cpu")
+    cpu_s = time.time() - t
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t = time.time()
+    proof = prove()
+    times = [time.time() - t]
+    launches, shapes = kernels.launches(), dict(kernels.LAUNCHES)
+    check_kind7_launches(launches, label)
+    blob = proof.to_bytes()
+    if blob != cpu.to_bytes():
+        raise RuntimeError(f"{label}: the card's proof differs from the CPU run")
+    t = time.time()
+    if not lst.verify_r1cs_witness(lst.deserialize_any(blob), [1], r1cs):
+        raise RuntimeError(f"{label}: the proof does not verify after deserialize_any")
+    verify_s = time.time() - t
+    reject_tampered_witness(proof, r1cs, label)
+    for _ in range(KIND7_REPS - 1):
+        torch.cuda.synchronize()
+        t = time.time()
+        prove()
+        times.append(time.time() - t)
+    median = sorted(times)[len(times) // 2]
+    trace = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                         f"{label}_trace.json")
+    wall, busy, top = device_busy(torch, prove, trace)
+    idle = None if busy is None else 1.0 - busy / wall
+    stages = kind9_stages(torch, prove)
+    n0 = _witness_geometry(r1cs, proof.fri_params, proof.mask_len)[3]
+    phase(f"phase 24 prove_r1cs_witness m={m} zk={zk} n0={n0}: the proof verifies after "
+          f"deserialize_any ({verify_s:.3f} s), a flipped FRI path byte, a flipped gamma "
+          f"evaluation and the public input [2] rejected, the bytes equal the CPU run "
+          f"({cpu_s:.2f} s on the CPU); launches per proof "
+          f"{nonzero(launches)}; end to end {[round(x, 4) for x in times]} s, median "
+          f"{median:.4f} s ({1 / median:.3f} proofs/s), {len(blob)} bytes; one profiled proof "
+          f"{wall:.4f} s wall, device busy "
+          f"{'not measured' if busy is None else f'{busy:.4f} s, idle share {idle:.3f}'}; "
+          f"most device time: {[(k, round(v, 3)) for k, v in top]}; host-clock stages of one "
+          f"proof (median of 3) {[(k, round(v, 4)) for k, v in stages.items()]}")
+    return launches, shapes, dict(
+        label=label, m=m, zk=zk, mask_len=proof.mask_len, n0=n0, stages_s=stages,
+        end_to_end_s=times,
+        end_to_end_median_s=median, proofs_per_s=1 / median, proof_bytes=len(blob),
+        cpu_route_s=cpu_s, verify_s=verify_s, launches_per_proof=nonzero(launches),
+        profiled_wall_s=wall, device_busy_s=busy, device_idle_share=idle, top_kernels_ms=top)
+
+
+def kind9_batch_stream_phase(np, torch, lst, dev, rng):
+    """Phase 24: ``prove_r1cs_witness_batch`` at m = 2^12, S = 4, and the
+    ``witness_bind`` stream at m = 2^10 (10 witnesses in batches of 4) with
+    a ``ProofStore`` resume: every proof verifies, and the stream's bytes
+    equal one batch. Returns ((label, the run's launches, its launches per
+    shape, context) for the batch and the stream, the record)."""
+    import shutil
+
+    from lambda_snark_tpu_torch import kernels
+    from lambda_snark_tpu_torch.proof.succinct_witness import verify_r1cs_witness
+
+    runs, record = [], {}
+    m = KIND9_M
+    ctx, r1cs = kind7_context(lst, m), kind7_circuit(lst, m)
+    ws = list(kind7_witnesses(np, lst, dev, rng, KIND9_BATCH, m))
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t = time.time()
+    proofs = lst.prove_r1cs_witness_batch(r1cs, ws, ctx, list(range(40, 40 + KIND9_BATCH)))
+    elapsed = time.time() - t
+    runs.append(("kind9_batch", kernels.launches(), dict(kernels.LAUNCHES), ctx))
+    if not all(verify_r1cs_witness(p, [1], r1cs) for p in proofs):
+        raise RuntimeError("kind-9 batch: a proof does not verify")
+    record["batch"] = dict(m=m, statements=KIND9_BATCH, end_to_end_s=elapsed,
+                           proofs_per_s=KIND9_BATCH / elapsed)
+
+    m = KIND9_STREAM_M
+    ctx, r1cs = kind7_context(lst, m), kind7_circuit(lst, m)
+    ws = list(kind7_witnesses(np, lst, dev, rng, KIND9_STREAM_COUNT, m))
+
+    def stream(store=None, batch=KIND9_STREAM_BATCH):
+        return lst.prove_r1cs_succinct_stream(r1cs, iter(ws), ctx, SEED, batch=batch,
+                                              store=store, witness_bind=True)
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t = time.time()
+    out = list(stream())
+    elapsed = time.time() - t
+    runs.append(("kind9_stream", kernels.launches(), dict(kernels.LAUNCHES), ctx))
+    whole = [p.to_bytes() for _i, p in stream(batch=KIND9_STREAM_COUNT)]
+    if ([i for i, _p in out] != list(range(KIND9_STREAM_COUNT))
+            or [p.to_bytes() for _i, p in out] != whole
+            or not all(verify_r1cs_witness(lst.deserialize_any(b), [1], r1cs) for b in whole)):
+        raise RuntimeError("kind-9 stream: out of order, not one batch's bytes, or unverified")
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "kind9_store")
+    shutil.rmtree(root, ignore_errors=True)
+    cut = stream(lst.ProofStore(root))
+    first = [next(cut)[1].to_bytes() for _ in range(KIND9_STREAM_COUNT // 2)]
+    cut.close()
+    again = [p.to_bytes() for _i, p in stream(lst.ProofStore(root))]
+    swept = lst.ProofStore(root).verify_all(r1cs)
+    if (first != whole[: KIND9_STREAM_COUNT // 2] or again != whole
+            or len(swept) != KIND9_STREAM_COUNT or not all(swept.values())):
+        raise RuntimeError("kind-9 stream: the resumed run or the store disagrees")
+    record["stream"] = dict(m=m, proofs=KIND9_STREAM_COUNT, batch=KIND9_STREAM_BATCH,
+                            end_to_end_s=elapsed, proofs_per_s=KIND9_STREAM_COUNT / elapsed)
+    phase(f"phase 24 prove_r1cs_witness_batch m={KIND9_M} S={KIND9_BATCH}: every proof "
+          f"verifies, {record['batch']['end_to_end_s']:.3f} s "
+          f"({record['batch']['proofs_per_s']:.3f} proofs/s); witness_bind stream m={m} "
+          f"batch={KIND9_STREAM_BATCH}: {KIND9_STREAM_COUNT} proofs in order through "
+          f"deserialize_any and verify_r1cs_witness, one batch's bytes, {elapsed:.3f} s "
+          f"({KIND9_STREAM_COUNT / elapsed:.2f} proofs/s); a ProofStore run cut after "
+          f"{KIND9_STREAM_COUNT // 2} proofs, then a full run, gives the same bytes and a "
+          f"store of {len(swept)} that verifies")
+    return runs, record
+
+
 def host_routes_phase(np, lst):
     """Phase 23: the host routes at the JAX tests' shapes (FriParams(3, 8),
     ring n = 64, k = 1): kind 7 over the 44-bit field and the healthcare
@@ -1627,8 +1852,10 @@ def main() -> int:
                 print(f"  {name} {fn}: {regs}; {spills}", flush=True)
     for name in ("ntt", "keccak", "quotient", "ring_commit"):
         for fn, mix in sass_mix(paths[name]).items():
-            if any(k in fn for k in ("dft_pass", "forest_kernelILi1E", "forest_kernelILi4E",
-                                     "quotient_kernel", "ring_commit_kernel")):
+            if any(k in fn for k in ("dft_pass", "forest_kernelILi1E", "forest_kernelILi2E",
+                                     "forest_kernelILi4E", "forest_kernelILi5E",
+                                     "forest_kernelILi6E", "quotient_kernel",
+                                     "ring_commit_kernel")):
                 print(f"  {name} SASS {fn}: {mix}", flush=True)
 
     rng = np.random.default_rng(SEED)
@@ -1905,6 +2132,16 @@ def main() -> int:
                                     f"kind8_{label}", kind7_context(lst, m), 22)
         kind8_lines.append({"kind8": rec, f"launches_kind8_{label}": nonzero(k8_launches)})
     host_routes = host_routes_phase(np, lst)
+    kind9 = {}
+    for zk9 in (False, True):
+        k9_launches, k9_shapes, rec = kind9_phase(np, torch, lst, dev, rng, zk9)
+        entries += hold_path_shapes(np, torch, lst, dev, rng, hold, k9_shapes, held,
+                                    rec["label"], kind7_context(lst, KIND9_M), 24)
+        kind9[rec["label"]] = rec
+    runs, kind9["batch_and_stream"] = kind9_batch_stream_phase(np, torch, lst, dev, rng)
+    for tag, _launches, shapes9, ctx9 in runs:
+        entries += hold_path_shapes(np, torch, lst, dev, rng, hold, shapes9, held, tag, ctx9, 24)
+    kind9["launches"] = {tag: nonzero(launches9) for tag, launches9, _s, _c in runs}
     print(json.dumps({"kind7": kind7}), flush=True)
     print(json.dumps({"kind7_2pow14": kind7_long, "launches_kind7_2pow14": k7_long,
                       "shape_launches_kind7_2pow14": [
@@ -1923,6 +2160,7 @@ def main() -> int:
     for line in kind8_lines:
         print(json.dumps(line), flush=True)
     print(json.dumps({"host_routes_s": host_routes}), flush=True)
+    print(json.dumps({"kind9": kind9}), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)

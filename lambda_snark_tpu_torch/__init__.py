@@ -2,12 +2,13 @@
 
 It runs the JAX package's batched and streamed prove stage (kinds 2 and 3),
 its succinct FRI provers (kind 7, plain and zero-knowledge: the batch,
-its chunk-pipelined form and the stream) and its aggregated proofs (kind
-8) on an NVIDIA H100 and gives the same proof bytes; its host provers
+its chunk-pipelined form and the stream), its aggregated proofs (kind 8)
+and its committed-witness proofs (kind 9: single, batch and stream) on an
+NVIDIA H100 and gives the same proof bytes; its host provers
 (``prover``: kinds 1, 2, 3 and 6; compact kinds 4 and 5; the phase-2
-checked proof; kind 7 off the Goldilocks fast front end) are the golden
-path on Python ints. It reads, verifies and stores its proofs and the JAX
-package's (kinds 1 to 8). It imports torch, numpy
+checked proof; kinds 7 and 9 off the Goldilocks fast front end) are the
+golden path on Python ints. It reads, verifies and stores its proofs and
+the JAX package's (kinds 1 to 9). It imports torch, numpy
 and the standard library only, never ``jax`` or ``lambda_snark_tpu``.
 Device entry points default to ``device="cuda"`` and raise without a card
 unless given ``device="cpu"``, where every kernel runs as its plain
@@ -63,7 +64,12 @@ from .proof.succinct import (
     succinct_view,
     verify_r1cs_succinct,
 )
-from .proof.succinct_batch import prove_r1cs_succinct_batch, prove_r1cs_succinct_stream
+from .proof.succinct_batch import (
+    prove_r1cs_succinct_batch,
+    prove_r1cs_succinct_stream,
+    prove_r1cs_witness_batch,
+)
+from .proof.succinct_witness import WitnessProofR1CS, prove_r1cs_witness, verify_r1cs_witness
 from .proof.types import EvalOpening, Proof, ProofR1CS, ProofR1csZk, deserialize_any
 from .r1cs.circuit import CircuitBuilder
 from .r1cs.domain import Domain

@@ -19,7 +19,7 @@ commitment on kernel R, or on the host at ring degree n < m), then:
             statements into one codeword            (deep_combine_device,
                                                      sum_statements_device)
     device  one FRI over it, opening the S group trees at the shared
-            indices                             (fri_prove_device, n_groups)
+            indices                                 (fri_prove_device)
 
 Plain and zero-knowledge proofs both take this route (the JAX package
 proves ZK aggregates on its host route; the bytes are the same). The
@@ -237,8 +237,8 @@ def prove_r1cs_succinct_aggregate(r1cs: R1CS, witnesses: Sequence[Sequence[int]]
                                        geo.omega_n,
                                        lam_tables=fri_device.lambda_ladder(lam, s, 4))
     fri_proof = fri_device.fri_prove_device(
-        fri_device.sum_statements_device(g), d.lde.reshape(1, 4 * s, n0), forest, geo.offset,
-        geo.omega_n, q, params, [tr], n_groups=s)[0]
+        fri_device.sum_statements_device(g), [(d.lde.reshape(1, 4 * s, n0), forest)],
+        geo.offset, geo.omega_n, q, params, [tr])[0]
     statements = tuple(
         StatementOpening(commitments[i], forest.roots[i], *chals[i],
                          tuple(int(v) for v in evals[i]))

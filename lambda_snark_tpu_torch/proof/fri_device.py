@@ -10,12 +10,15 @@ branch, ``DEVICE_TRANSCRIPT = False``).
 - the DEEP combination runs in torch ops (Montgomery batch inversion, with
   one host inverse per row); the aggregate (kind 8) passes its
   cross-statement lambda ladder as tables and sums the statements'
-  quotients into one codeword (``sum_statements_device``);
+  quotients into one codeword (``sum_statements_device``); kind 9's takes
+  a table of (oracle, point, value) terms and a shifted degree-bound
+  column (``deep_combine_terms_device``);
 - the final polynomials come from kernel N (the inverse transform of the
   residual codewords) on the device;
 - the query openings (values and authentication paths of every layer) are
-  gathered on the device and pulled in one transfer per batch; with
-  ``n_groups`` a FRI statement's oracles sit in several group trees (the
+  gathered on the device and pulled in one transfer per batch; a FRI
+  statement's input oracles may sit in several groups of unequal sizes
+  (kind 9's pre and sum groups) and a group in several trees (the
   aggregate's one tree per statement), each opened at the same indices.
 
 Transcripts stay on the host (``proof.fri.FriTranscript``); the per-layer
@@ -235,6 +238,53 @@ def sum_statements_device(g: torch.Tensor) -> torch.Tensor:
     return g
 
 
+def _sum_words(x: torch.Tensor) -> torch.Tensor:
+    """(R, n) canonical words -> (n,), their exact sum mod p: the 32-bit
+    halves summed without reduction (R < 2^31 rows keeps each sum below
+    2^63), then lo + hi 2^32 mod p."""
+    lo = (x & modarith.M32).sum(dim=0)
+    hi = ((x >> 32) & modarith.M32).sum(dim=0)
+    # lo, hi < R 2^32 < p: canonical words
+    return modarith.add_mod(lo, modarith.mul_mod(hi, (1 << 32) % P, P), P)
+
+
+_SHIFT_CACHE: dict = {}
+
+
+def deep_combine_terms_device(cw: torch.Tensor, points, term_oracle: Sequence[int],
+                              term_point_idx: Sequence[int], weights, values, offset: int,
+                              omega: int, shift_oracle: int, shift_exp: int,
+                              shift_weight: int) -> torch.Tensor:
+    """Kind 9's DEEP quotient over (K, n0) codewords on offset <omega>:
+
+        g = sum_t weights[t] (cw[term_oracle[t]] - values[t])
+                  / (x - points[term_point_idx[t]])
+            + shift_weight x^shift_exp cw[shift_oracle]
+
+    points (P,), weights and values (T,) are host uint64; returns g (n0,).
+    The terms of one point are summed before their one product by that
+    point's inverse row (field arithmetic is exact, so the order does not
+    change a word): T scalar products, P inverse rows, P row products."""
+    k_in, n0 = cw.shape
+    dev = cw.device
+    pts = _words(points, dev)
+    inv = _batch_inverse(modarith.sub_mod(_coset_points(n0, offset, omega, dev)[None, :],
+                                          pts[:, None], P))  # (P, n0)
+    oracle = torch.tensor(list(term_oracle), dtype=torch.int64, device=dev)
+    terms = modarith.mul_mod(modarith.sub_mod(cw.index_select(0, oracle),
+                                              _words(values, dev)[:, None], P),
+                             _words(weights, dev)[:, None], P)  # (T, n0)
+    by_point = [[t for t, p in enumerate(term_point_idx) if p == i] for i in range(len(pts))]
+    acc = torch.stack([_sum_words(terms[sel]) for sel in by_point])  # (P, n0)
+    key = (n0, offset, omega, shift_exp, str(dev))
+    if key not in _SHIFT_CACHE:  # x^e on the coset: offset^e (omega^e)^i
+        _SHIFT_CACHE[key] = _words(_gl_powers(pow(omega, shift_exp, P), n0,
+                                              scale=pow(offset, shift_exp, P)), dev)
+    shifted = modarith.mul_mod(modarith.mul_mod(cw[shift_oracle], shift_weight % P, P),
+                               _SHIFT_CACHE[key], P)
+    return _sum_words(torch.cat([modarith.mul_mod(acc, inv, P), shifted[None]]))
+
+
 # --- the prover -------------------------------------------------------------------
 
 
@@ -320,20 +370,37 @@ def _take_siblings(forest: DevForest, pos: torch.Tensor) -> List[torch.Tensor]:
             for i, lvl in enumerate(forest.levels[:-1])]
 
 
-def fri_open(input_vals: torch.Tensor, input_forest: DevForest, committed, finals,
-             idx: torch.Tensor, n_groups: int = 1) -> List[FriProof]:
+def _trees_per_statement(inputs, s: int) -> List[int]:
+    """Each input group's trees per FRI statement, T = n_trees / S; its K
+    oracles split evenly over them."""
+    trees = []
+    for vals, forest in inputs:
+        t = forest.n_trees // s if s else 0
+        if vals.shape[0] != s or not t or forest.n_trees != s * t or vals.shape[1] % t:
+            raise ValueError("g, the input codewords and the forest disagree on shape")
+        trees.append(t)
+    return trees
+
+
+def fri_open(inputs, committed, finals, idx: torch.Tensor) -> List[FriProof]:
     """The query phase: gather every opened value and path on the device,
     pull them in one transfer, and assemble one FriProof per statement.
-    Statement i's K oracles sit in ``n_groups`` trees of K / n_groups
-    (trees i n_groups + g of ``input_forest``), each opened at its
-    indices."""
-    s, k_in, n0 = input_vals.shape
-    nq = idx.shape[1]
-    gsize = k_in // n_groups
-    idx_k = idx[:, None, :].expand(-1, k_in, -1)
-    parts = [input_vals.gather(2, idx_k), input_vals.gather(2, idx_k + n0 // 2)]
-    parts += _take_siblings(input_forest, idx.repeat_interleave(n_groups, dim=0))
-    depths = [len(input_forest.levels) - 1]
+
+    ``inputs`` lists the input groups in the order of a query's openings,
+    each as (codewords (S, K, n0), forest); statement i's K oracles of a
+    group sit in T = n_trees / S trees of K / T oracles (trees i T + t),
+    each opened at its indices. Groups may differ in K and T (kind 7: one
+    group of 4 oracles; kind 8: one of 4 S' oracles in S' trees; kind 9:
+    the pre group of 5 or 6 and the sum group of 2)."""
+    s, nq = idx.shape
+    parts, specs = [], []
+    for (vals, forest), trees in zip(inputs, _trees_per_statement(inputs, s)):
+        k_in, n0 = vals.shape[1:]
+        idx_k = idx[:, None, :].expand(-1, k_in, -1)
+        parts += [vals.gather(2, idx_k), vals.gather(2, idx_k + n0 // 2)]
+        parts += _take_siblings(forest, idx.repeat_interleave(trees, dim=0))
+        specs.append((k_in // trees, trees, len(forest.levels) - 1))
+    depths = []
     pos = idx
     for values, forest in committed:
         half = forest.num_leaves
@@ -347,13 +414,15 @@ def fri_open(input_vals: torch.Tensor, input_forest: DevForest, committed, final
         levels = [next(pulled) for _ in range(depth)]
         return np.stack(levels, axis=2).view(np.uint8).reshape(rows, nq, 32 * depth)
 
-    in_lo, in_hi = next(pulled), next(pulled)  # (S, K, Q)
-    # (S, Q, G, 2 gsize): each group's (lo, hi) pairs in oracle order
-    in_vals = np.stack([in_lo, in_hi], axis=3).transpose(0, 2, 1, 3).reshape(
-        s, nq, n_groups, 2 * gsize).tolist()
-    in_path = path_bytes(depths[0], s * n_groups).reshape(s, n_groups, nq, -1)
+    groups = []
+    for gsize, trees, depth in specs:
+        in_lo, in_hi = next(pulled), next(pulled)  # (S, K, Q)
+        # (S, Q, T, 2 gsize): each tree's (lo, hi) pairs in oracle order
+        vals = np.stack([in_lo, in_hi], axis=3).transpose(0, 2, 1, 3).reshape(
+            s, nq, trees, 2 * gsize).tolist()
+        groups.append((trees, vals, path_bytes(depth, s * trees).reshape(s, trees, nq, -1)))
     layers = []
-    for depth in depths[1:]:
+    for depth in depths:
         v_lo, v_hi = next(pulled).tolist(), next(pulled).tolist()
         layers.append((v_lo, v_hi, path_bytes(depth, s)))
 
@@ -361,30 +430,26 @@ def fri_open(input_vals: torch.Tensor, input_forest: DevForest, committed, final
     for si in range(s):
         queries = []
         for qi in range(nq):
-            inputs = tuple(GroupOpening(tuple(in_vals[si][qi][g]), in_path[si, g, qi].tobytes())
-                           for g in range(n_groups))
+            opened = tuple(GroupOpening(tuple(vals[si][qi][t]), paths[si, t, qi].tobytes())
+                           for trees, vals, paths in groups for t in range(trees))
             layer_ops = tuple(LayerOpening(v_lo[si][qi], v_hi[si][qi], path[si, qi].tobytes())
                               for v_lo, v_hi, path in layers)
-            queries.append(FriQuery(inputs, layer_ops))
+            queries.append(FriQuery(opened, layer_ops))
         roots = tuple(forest.roots[si] for _v, forest in committed)
         proofs.append(FriProof(roots, tuple(finals[si]), tuple(queries)))
     return proofs
 
 
-def fri_prove_device(g: torch.Tensor, input_vals: torch.Tensor, input_forest: DevForest,
-                     offset: int, omega: int, q: int, params: FriParams,
-                     trs: Sequence[FriTranscript], n_groups: int = 1) -> List[FriProof]:
+def fri_prove_device(g: torch.Tensor, inputs, offset: int, omega: int, q: int,
+                     params: FriParams, trs: Sequence[FriTranscript]) -> List[FriProof]:
     """One FriProof per statement, byte-identical to the JAX prover.
 
-    g (S, n0): combined DEEP quotients; input_vals (S, K, n0): the committed
-    input codewords, in ``n_groups`` interleaved-group trees per statement
-    (``input_forest``, statement-major, group-minor; the aggregate passes
-    its (S', 4, n0) codewords as (1, 4 S', n0) with n_groups = S'); trs:
-    one transcript per statement, seeded with the roots and evaluations
-    already."""
-    s, k_in, n0 = input_vals.shape
-    if (tuple(g.shape) != (s, n0) or input_forest.n_trees != s * n_groups
-            or k_in % n_groups):
+    g (S, n0): combined DEEP quotients; ``inputs``: the committed input
+    groups as ``fri_open`` takes them (the aggregate passes its (S', 4, n0)
+    codewords as (1, 4 S', n0) with its S' trees); trs: one transcript per
+    statement, seeded with the roots and evaluations already."""
+    s, n0 = g.shape
+    _trees_per_statement(inputs, s)
+    if any(vals.shape[2] != n0 for vals, _f in inputs):
         raise ValueError("g, the input codewords and the forest disagree on shape")
-    return fri_open(input_vals, input_forest,
-                    *fri_commit_layers(g, offset, omega, q, params, trs), n_groups=n_groups)
+    return fri_open(inputs, *fri_commit_layers(g, offset, omega, q, params, trs))

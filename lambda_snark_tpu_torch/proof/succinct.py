@@ -30,13 +30,22 @@ import struct
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..commit import lwe
 from ..commit.lwe import Commitment, LweContext
 from ..core import field
-from ..core.errors import DomainError, SerializationError
+from ..core.errors import DomainError, InvalidWitnessError, SerializationError
 from ..device import resolve
+from ..ops import modarith
 from ..ops.modarith import GOLDILOCKS
+from ..ops.ntt import (
+    NttPlan,
+    ntt_forward,
+    ntt_forward_negacyclic,
+    ntt_inverse,
+    ntt_inverse_negacyclic,
+)
 from ..r1cs import poly as polyops
 from ..r1cs.domain import ROOTS
 from ..r1cs.r1cs import R1CS
@@ -47,6 +56,7 @@ from .fri import (
     FriParams,
     FriProof,
     FriTranscript,
+    _gl_powers,
     batch_inverse,
     commit_codeword_group,
     coset_offset,
@@ -239,6 +249,85 @@ def _gl_trim(p: np.ndarray) -> np.ndarray:
     """p without its trailing zero coefficients (at least one left)."""
     nz = np.nonzero(p)[0]
     return p[: int(nz[-1]) + 1 if len(nz) else 1]
+
+
+# --- Goldilocks host helpers: uint64 arrays in and out, torch ops on CPU words ----
+
+_GL_PLANS: dict = {}
+
+
+def _gl_plan(n: int) -> NttPlan:
+    """The n-point Goldilocks transform on the CPU, omega = root_of_order(p, n),
+    with psi = root_of_order(p, 2n) for the negacyclic one (the JAX
+    package's ``goldilocks_ntt(n)``)."""
+    if n not in _GL_PLANS:
+        _GL_PLANS[n] = NttPlan.create(n, GOLDILOCKS, root_of_order(GOLDILOCKS, n),
+                                      root_of_order(GOLDILOCKS, 2 * n))
+    return _GL_PLANS[n]
+
+
+def _gl_words(p) -> torch.Tensor:
+    return modarith.to_words(np.asarray(p, dtype=np.uint64))
+
+
+def _gl_sum(terms: torch.Tensor) -> int:
+    """The sum mod p of canonical words, from exact sums of their 32-bit halves."""
+    lo, hi = int((terms & modarith.M32).sum()), int(((terms >> 32) & modarith.M32).sum())
+    return (lo + (hi << 32)) % GOLDILOCKS
+
+
+def _gl_quotient_and_interpolations(r1cs: R1CS, witness: Sequence[int]):
+    """(Q, A_z, B_z, C_z) as uint64 arrays, Q without its trailing zeros: the
+    odd-coset quotient of ``R1CS.compute_quotient_poly`` and the
+    interpolations of ``R1CS.interpolations``, on CPU words. Raises
+    InvalidWitnessError for a witness that fails the constraints."""
+    q = r1cs.modulus
+    az, bz, cz = (_gl_words(ev) for ev in r1cs.compute_constraint_evals(witness))
+    if not bool((modarith.mul_mod(az, bz, q) == cz).all()):
+        raise InvalidWitnessError("witness does not satisfy R1CS constraints")
+    plan = _gl_plan(r1cs.m)
+    polys = [ntt_inverse(plan, x) for x in (az, bz, cz)]
+    a_odd, b_odd, c_odd = (ntt_forward_negacyclic(plan, p) for p in polys)
+    q_odd = modarith.mul_mod(modarith.sub_mod(modarith.mul_mod(a_odd, b_odd, q), c_odd, q),
+                             field.mod_inverse(q - 2, q), q)
+    q_coeffs = modarith.to_u64(ntt_inverse_negacyclic(plan, q_odd))
+    return (_gl_trim(q_coeffs), *(modarith.to_u64(p) for p in polys))
+
+
+def _gl_poly_eval(p, x: int) -> int:
+    """p(x) mod p for uint64 coefficients."""
+    if len(p) == 0:
+        return 0
+    return _gl_sum(modarith.mul_mod(_gl_words(p), _gl_words(_gl_powers(x, len(p))), GOLDILOCKS))
+
+
+def _gl_conv(a, b) -> np.ndarray:
+    """The exact product of two polynomials: a cyclic NTT of the next power
+    of two >= len(a) + len(b) - 1."""
+    out_len = len(a) + len(b) - 1
+    plan = _gl_plan(max(_next_pow2(out_len), 2))
+    fa, fb = (ntt_forward(plan, _gl_words(np.pad(np.asarray(x, dtype=np.uint64),
+                                                 (0, plan.m - len(x))))) for x in (a, b))
+    return modarith.to_u64(ntt_inverse(plan, modarith.mul_mod(fa, fb, GOLDILOCKS)))[:out_len]
+
+
+def _gl_zh_mul(rho, m: int) -> np.ndarray:
+    """(X^m - 1) rho."""
+    rho = np.asarray(rho, dtype=np.uint64)
+    out = np.zeros(m + len(rho), dtype=np.uint64)
+    out[m:] = rho
+    out[: len(rho)] = modarith.to_u64(modarith.sub_mod(_gl_words(out[: len(rho)]),
+                                                       _gl_words(rho), GOLDILOCKS))
+    return out
+
+
+def _gl_add_padded(*polys) -> np.ndarray:
+    """The sum of polynomials of any lengths, as long as the longest."""
+    n = max(len(p) for p in polys)
+    acc = torch.zeros(n, dtype=torch.int64)
+    for p in polys:
+        acc[: len(p)] = modarith.add_mod(acc[: len(p)], _gl_words(p), GOLDILOCKS)
+    return modarith.to_u64(acc)
 
 
 def _prove_host(r1cs: R1CS, witness: Sequence[int], ctx: LweContext, seed: int,

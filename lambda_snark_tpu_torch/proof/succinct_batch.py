@@ -1,4 +1,5 @@
-"""Batched kind-7 proving: many FRI-bound proofs per device pass.
+"""Batched kind-7 proving: many FRI-bound proofs per device pass; kind 9 in
+batches and streams.
 
 The port of the JAX package's ``prove_r1cs_succinct_batch`` (its device
 front end and device FRI, with host transcripts), its chunk-pipelined
@@ -27,6 +28,10 @@ Proofs depend only on (witness, seed, blinding seed), so the bytes are the
 unchunked prover's. On an H100 chunking is slower than one batch (each
 chunk repeats the host's fixed part); it bounds the device memory of a
 large batch.
+
+Kind 9 (``prove_r1cs_witness_batch``, and the stream with
+``witness_bind=True``) proves one ``prove_r1cs_witness`` per statement, as
+the JAX package does.
 
 Proof bytes equal the JAX package's for the same (context, circuit,
 witnesses, seeds, blinding seeds, parameters).
@@ -59,8 +64,10 @@ from .succinct import (
     zk_mask_len,
 )
 from .succinct_device import Dispatched, eval_device, finish_quotient_lde, quotient_lde_dispatch
+from .succinct_witness import prove_r1cs_witness
 
-__all__ = ["prove_r1cs_succinct_batch", "prove_r1cs_succinct_stream"]
+__all__ = ["prove_r1cs_succinct_batch", "prove_r1cs_succinct_stream",
+           "prove_r1cs_witness_batch"]
 
 #: the seed-fold constant shared with ``prover_batched.prove_r1cs_stream``
 _SEED_FOLD = 0x9E3779B97F4A7C15
@@ -158,7 +165,7 @@ def _back_end(r1cs: R1CS, witnesses, d: Dispatched, first: int, geo: _Geometry
                                        geo.omega_n)
     committed, finals, idx = fri_device.fri_commit_layers(g, geo.offset, geo.omega_n, q,
                                                           params, trs)
-    fri_proofs = fri_device.fri_open(d.lde, forest, committed, finals, idx)
+    fri_proofs = fri_device.fri_open([(d.lde, forest)], committed, finals, idx)
     return [
         SuccinctProofR1CS(
             commitments[i], forest.roots[i], *chals[i], *(int(v) for v in evals[i]),
@@ -235,6 +242,30 @@ def prove_r1cs_succinct_batch(r1cs: R1CS, witnesses: Sequence[Sequence[int]],
     return _prove_batch(r1cs, witnesses, ctx, seeds, params, rngs, pipeline_chunk, dev)
 
 
+def prove_r1cs_witness_batch(r1cs: R1CS, witnesses: Sequence[Sequence[int]], ctx: LweContext,
+                             seeds: Sequence[int], zk: bool = False,
+                             fri_params: Optional[FriParams] = None,
+                             blinding_seeds: Optional[Sequence[int]] = None,
+                             device_lde: bool = True, device="cuda") -> list:
+    """Kind-9 proofs for a batch of witnesses of one circuit, one
+    ``prove_r1cs_witness`` per statement (as the JAX package proves them),
+    byte-identical to the JAX package's ``prove_r1cs_witness_batch``.
+    The parameters are the JAX package's, in its order, then ``device``;
+    ``zk=True`` needs one blinding seed per witness, and ``device_lde`` is
+    ignored."""
+    params = fri_params or FriParams()
+    params.validate()
+    if len(seeds) != len(witnesses):
+        raise InvalidDimensionsError("need one seed per witness")
+    if zk and (blinding_seeds is None or len(blinding_seeds) != len(witnesses)):
+        raise InvalidDimensionsError(
+            "zk witness batch proving needs one blinding seed per witness")
+    dev = resolve(device)
+    return [prove_r1cs_witness(r1cs, w, ctx, seed, zk=zk, fri_params=params,
+                               blinding_seed=blinding_seeds[i] if zk else None, device=dev)
+            for i, (w, seed) in enumerate(zip(witnesses, seeds))]
+
+
 def _index_seed(master: int, index: int) -> int:
     """Statement ``index``'s seed: the same for any partition of the stream."""
     return (master ^ (_SEED_FOLD * (index + 1))) & ((1 << 63) - 1)
@@ -247,52 +278,56 @@ def prove_r1cs_succinct_stream(r1cs: R1CS, witnesses, ctx: LweContext, seed: int
                                device_lde: bool = True, label_prefix: str = "succinct",
                                pipeline_chunk: Optional[int] = None,
                                witness_bind: bool = False, device="cuda"):
-    """Yield ``(index, SuccinctProofR1CS)`` for a witness stream, in order,
-    proved in batches of ``batch`` (``prove_r1cs_succinct_batch``).
+    """Yield ``(index, proof)`` for a witness stream, in order, proved in
+    batches of ``batch``: kind 7 (``prove_r1cs_succinct_batch``), or kind 9
+    (``prove_r1cs_witness_batch``) with ``witness_bind=True``.
 
     Statement i's seed is ``_index_seed(seed, i)`` and, under ZK, its
     blinding seed ``_index_seed(b, i)`` with b = ``blinding_seed`` or
     ``seed ^ _BLIND_SALT``, so any partition of the stream gives the same
     bytes. With ``store`` (a ``ProofStore``) each proof is saved under the
-    label ``"{label_prefix}-{index}"`` as it is yielded, and a statement
-    the store holds is served from it, byte-identical, so a cut run resumes.
-    ``witness_bind=True`` (kind 9) is not ported (ROADMAP A.4b)."""
-    if witness_bind:
-        raise NotImplementedError("the committed-witness stream (witness_bind=True, kind 9) "
-                                  "is not ported yet (ROADMAP A.4b)")
+    label ``"{label_prefix}-{index}"`` (kind 9: ``"{label_prefix}-w-{index}"``)
+    as it is yielded, and a statement the store holds is served from it,
+    byte-identical, so a cut run resumes."""
     params = fri_params or FriParams()
     params.validate()
     dev = resolve(device)
     return _stream(r1cs, witnesses, ctx, seed, batch, zk, params, blinding_seed, store,
-                   label_prefix, pipeline_chunk, dev)
+                   label_prefix, pipeline_chunk, witness_bind, dev)
 
 
 def _stream(r1cs, witnesses, ctx, seed, batch, zk, params, blinding_seed, store,
-            label_prefix, pipeline_chunk, dev):
+            label_prefix, pipeline_chunk, witness_bind, dev):
     from ..utils.artifacts import statement_digest
 
     blind_master = blinding_seed if blinding_seed is not None else seed ^ _BLIND_SALT
+    prefix = f"{label_prefix}-w" if witness_bind else label_prefix
     pending: list = []  # (index, witness)
 
     def flush():
         if not pending:
             return
         idxs = [i for i, _w in pending]
+        ws = [w for _i, w in pending]
         seeds = [_index_seed(seed, i) for i in idxs]
         blinds = [_index_seed(blind_master, i) for i in idxs] if zk else None
-        proofs = prove_r1cs_succinct_batch(r1cs, [w for _i, w in pending], ctx, seeds, zk=zk,
-                                           fri_params=params, blinding_seeds=blinds,
-                                           pipeline_chunk=pipeline_chunk, device=dev)
+        if witness_bind:
+            proofs = prove_r1cs_witness_batch(r1cs, ws, ctx, seeds, zk=zk, fri_params=params,
+                                              blinding_seeds=blinds, device=dev)
+        else:
+            proofs = prove_r1cs_succinct_batch(r1cs, ws, ctx, seeds, zk=zk, fri_params=params,
+                                               blinding_seeds=blinds,
+                                               pipeline_chunk=pipeline_chunk, device=dev)
         for (index, w), proof, s in zip(pending, proofs, seeds):
             if store is not None:
-                store.save(r1cs, r1cs.public_inputs(w), s, proof, label=f"{label_prefix}-{index}")
+                store.save(r1cs, r1cs.public_inputs(w), s, proof, label=f"{prefix}-{index}")
             yield index, proof
         pending.clear()
 
     for index, w in enumerate(witnesses):
         if store is not None:
             key = statement_digest(r1cs, r1cs.public_inputs(w), _index_seed(seed, index),
-                                   f"{label_prefix}-{index}")
+                                   f"{prefix}-{index}")
             if store.contains(key):
                 yield from flush()
                 yield index, store.load(key)

@@ -1,4 +1,5 @@
-"""The device front end of batched kind-7 proving (Goldilocks).
+"""The device front end of batched kind-7 proving (Goldilocks), shared by
+kinds 8 and 9.
 
 The counterpart of the JAX package's ``proof/succinct_device.py``
 (``quotient_lde_device`` with the fused commitment, its ``defer_pull`` /
@@ -11,8 +12,9 @@ masks of its ``succinct_batch._gl_batch_frontend``:
          Q~ = Q + rho_A B + rho_B A + Z_H rho_A rho_B - rho_C, whose
          products are exact convolutions on kernel T at the next power of
          two (one forward launch for every factor, one inverse for the sum)
-      -> pad to n0; kernel T: the LDE on offset <omega_n0>, the offset^i
-         twist folded into its first pass                (ops.ntt_large)
+      -> pad to n0, with any extra rows of the group (kind 9: z^, mu);
+         kernel T: the LDE on offset <omega_n0>, the offset^i twist
+         folded into its first pass                      (ops.ntt_large)
       -> kernel K: one interleaved-group Merkle tree per statement
       -> ChaCha20 draws (torch ops), kernel R: the commitment to the
          unmasked Q                                      (commit.lwe_device)
@@ -24,13 +26,14 @@ the pull carries the quotients instead, and each, without its trailing
 zeros, is committed on the host (``commit.lwe.commit_batch``), as the JAX
 package's unfused branch does. The
 codewords, polynomials and trees stay on the device. ``eval_device``
-evaluates A, B, C, Q at the dual challenges without pulling them.
+evaluates A, B, C, Q at the dual challenges without pulling them
+(``eval_at``: any rows at any points).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -160,7 +163,7 @@ def mask_polys(q_poly, a_poly, b_poly, c_poly, rho: torch.Tensor) -> torch.Tenso
 class Dispatched:
     """A front end enqueued on the device and not pulled yet."""
 
-    lde: torch.Tensor  # (S, 4, n0) codewords
+    lde: torch.Tensor  # (S, 4 + E, n0) codewords, the extra rows last
     polys: torch.Tensor  # (S, 4, width) A, B, C, Q (masked under ZK)
     levels: List[torch.Tensor]  # the group forest, leaf level first
     valid: torch.Tensor  # (S,) bool, kernel Q's a b = c flags
@@ -172,12 +175,15 @@ class Dispatched:
 
 def quotient_lde_dispatch(az: torch.Tensor, bz: torch.Tensor, cz: torch.Tensor, n0: int,
                           offset: int, ctx: LweContext, seeds,
-                          masks: Optional[np.ndarray] = None) -> Dispatched:
+                          masks: Optional[np.ndarray] = None,
+                          extra: Sequence[torch.Tensor] = ()) -> Dispatched:
     """Enqueue the front end of (S, m) constraint evaluations on the
     current stream. ``masks`` (3, S, L) uint64 (rho_A, rho_B, rho_C) makes
     it the zero-knowledge front end; the commitment is to the unmasked Q
     either way; below m (the ring degree n) it is left to
-    ``finish_quotient_lde``."""
+    ``finish_quotient_lde``. Each ``extra`` (S, w) polynomial row joins the
+    group after A, B, C, Q: one LDE launch and one forest for 4 + E
+    oracles (kind 9's z^ and mu)."""
     s, m = az.shape
     dev = az.device
     plan = frontend_plan(m, n0, offset, dev)
@@ -188,8 +194,11 @@ def quotient_lde_dispatch(az: torch.Tensor, bz: torch.Tensor, cz: torch.Tensor, 
         rho = torch.from_numpy(np.ascontiguousarray(masks).view(np.int64)).to(dev)
         polys = mask_polys(q_poly, a_poly, b_poly, c_poly, rho)
     padded = _pad(polys, n0)
-    lde = ntt_forward_large(plan.lde, padded.reshape(4 * s, n0),
-                            pre=plan.twist).reshape(s, 4, n0)
+    if extra:
+        padded = torch.cat([padded] + [_pad(x, n0)[:, None] for x in extra], dim=1)
+    k = padded.shape[1]
+    lde = ntt_forward_large(plan.lde, padded.reshape(k * s, n0),
+                            pre=plan.twist).reshape(s, k, n0)
     levels = group_forest_levels(lde)
     if ctx.n < m:
         return Dispatched(lde=lde, polys=polys, levels=levels, valid=valid, commitment=None,
@@ -231,21 +240,27 @@ def quotient_lde_device(az, bz, cz, n0: int, offset: int, ctx: LweContext, seeds
     return d.lde, commitments, d.polys, forest
 
 
-def eval_device(polys: torch.Tensor, alphas: np.ndarray, betas: np.ndarray) -> np.ndarray:
-    """A, B, C, Q (S, 4, width) at the dual challenges: (S, 8) uint64 in the
-    wire order (A, B, C, Q at alpha, then at beta)."""
+def eval_at(polys: torch.Tensor, points: np.ndarray) -> np.ndarray:
+    """Each statement's K polynomials (S, K, width) at its P points (S, P)
+    uint64: (S, P, K) uint64."""
     s, k, m = polys.shape
-    pts = modarith.to_words(np.stack([alphas, betas], axis=1).astype(np.uint64),
-                            polys.device)  # (S, 2)
-    pows = torch.ones((s, 2, 1), dtype=torch.int64, device=polys.device)
+    pts = modarith.to_words(np.asarray(points, dtype=np.uint64), polys.device)  # (S, P)
+    pows = torch.ones(pts.shape + (1,), dtype=torch.int64, device=polys.device)
     cur = pts[:, :, None]
     while pows.shape[-1] < m:
         step = min(pows.shape[-1], m - pows.shape[-1])
         pows = torch.cat([pows, modarith.mul_mod(pows[..., :step], cur, P)], dim=-1)
         cur = modarith.mul_mod(cur, cur, P)
-    terms = modarith.mul_mod(polys[:, None, :, :], pows[:, :, None, :], P)  # (S, 2, 4, m)
+    terms = modarith.mul_mod(polys[:, None, :, :], pows[:, :, None, :], P)  # (S, P, K, m)
     while terms.shape[-1] > 1:
         if terms.shape[-1] & 1:
             terms = torch.cat([terms, torch.zeros_like(terms[..., :1])], dim=-1)
         terms = modarith.add_mod(terms[..., 0::2], terms[..., 1::2], P)
-    return modarith.to_u64(terms[..., 0]).reshape(s, 2 * k)
+    return modarith.to_u64(terms[..., 0])
+
+
+def eval_device(polys: torch.Tensor, alphas: np.ndarray, betas: np.ndarray) -> np.ndarray:
+    """A, B, C, Q (S, 4, width) at the dual challenges: (S, 8) uint64 in the
+    wire order (A, B, C, Q at alpha, then at beta)."""
+    s, k, _m = polys.shape
+    return eval_at(polys, np.stack([alphas, betas], axis=1)).reshape(s, 2 * k)

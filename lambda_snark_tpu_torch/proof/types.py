@@ -6,8 +6,8 @@
 
 Kinds 1 (simple), 2 (R1CS, v1 transcript), 6 (R1CS, v3 transcript bound to
 the circuit digest) and 3 (R1CS, ZK) live here; kinds 4 and 5 are
-``proof.compact``, kind 7 ``proof.succinct`` and kind 8
-``proof.aggregate``. The JAX package and the port read each other's bytes.
+``proof.compact``, kind 7 ``proof.succinct``, kind 8 ``proof.aggregate``
+and kind 9 ``proof.succinct_witness``. The JAX package and the port read each other's bytes.
 """
 
 from __future__ import annotations
@@ -29,12 +29,7 @@ _KIND_R1CS_ZK = 3
 _KIND_R1CS_V3 = 6  # the v1 body, circuit-digest-bound transcript
 _KIND_SUCCINCT = 7
 _KIND_AGGREGATE = 8
-
-#: Kinds the JAX package decodes and the port does not yet, with the
-#: ROADMAP queue item that ports them.
-_NOT_PORTED = {
-    9: "committed-witness proofs (ROADMAP A.4b, proof/succinct_witness.py)",
-}
+_KIND_WITNESS = 9
 
 
 def _pack_words(words) -> bytes:
@@ -223,10 +218,8 @@ class ProofR1csZk:
 
 
 def deserialize_any(data: bytes):
-    """Decode proof bytes by their kind byte: 1 to 8. Kind 9, which the port
-    does not decode yet, raises SerializationError naming the queue item
-    that ports it; bad magic and unknown kinds raise as in the JAX
-    package."""
+    """Decode proof bytes by their kind byte, 1 to 9; bad magic and unknown
+    kinds raise SerializationError as in the JAX package."""
     if len(data) < 9 or data[:8] != _MAGIC:
         raise SerializationError("bad proof magic")
     kind = data[8]
@@ -250,6 +243,8 @@ def deserialize_any(data: bytes):
         from .aggregate import AggregatedProofR1CS
 
         return AggregatedProofR1CS.from_bytes(data)
-    if kind in _NOT_PORTED:
-        raise SerializationError(f"proof kind {kind}: {_NOT_PORTED[kind]} are not ported yet")
+    if kind == _KIND_WITNESS:
+        from .succinct_witness import WitnessProofR1CS
+
+        return WitnessProofR1CS.from_bytes(data)
     raise SerializationError(f"unknown proof kind {kind}")

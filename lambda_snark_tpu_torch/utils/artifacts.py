@@ -17,7 +17,6 @@ import json
 import os
 from typing import Dict, List, Optional, Sequence
 
-from ..core.errors import SerializationError
 from ..proof.types import ProofR1CS, ProofR1csZk, deserialize_any
 from ..r1cs.r1cs import R1CS
 
@@ -67,7 +66,6 @@ class ProofStore:
         os.makedirs(root, exist_ok=True)
         self._manifest_path = os.path.join(root, "manifest.json")
         self._manifest: Dict[str, dict] = {}
-        self.failures: Dict[str, str] = {}  # key -> why verify_all could not load it
         if os.path.exists(self._manifest_path):
             with open(self._manifest_path) as f:
                 self._manifest = json.load(f)
@@ -109,25 +107,23 @@ class ProofStore:
         return sorted(self._manifest)
 
     def verify_all(self, r1cs: R1CS) -> Dict[str, bool]:
-        """Re-verify every stored proof of this circuit: kinds 2/3/6 with
-        their verifiers, kind 7 against its own recorded FRI parameters (an
-        integrity sweep, not an acceptance floor). A proof of a kind the
-        port cannot load yet records False, as an unknown type does in the
-        JAX package; ``failures`` holds the reasons."""
+        """Re-verify every stored proof of this circuit: kinds 2/3/6, the
+        compact kinds 4/5 and kinds 7 and 9 with their verifiers, the FRI
+        kinds against their own recorded FRI parameters (an integrity
+        sweep, not an acceptance floor). A proof of another type (kind 1,
+        the aggregate) records False, as in the JAX package; a blob that
+        does not decode raises, as there."""
+        from ..proof.compact import CompactProofR1CS, verify_r1cs_compact
         from ..proof.succinct import SuccinctProofR1CS, verify_r1cs_succinct
+        from ..proof.succinct_witness import WitnessProofR1CS, verify_r1cs_witness
         from ..verifier import verify_r1cs, verify_r1cs_zk
 
         cdig = circuit_digest(r1cs)
         results = {}
-        self.failures = {}
         for key, entry in self._manifest.items():
             if entry["circuit"] != cdig:
                 continue
-            try:
-                proof = self.load(key)
-            except SerializationError as exc:
-                results[key], self.failures[key] = False, str(exc)
-                continue
+            proof = self.load(key)
             public = entry["public_inputs"]
             if isinstance(proof, ProofR1csZk):
                 results[key] = verify_r1cs_zk(proof, public, r1cs)
@@ -136,6 +132,11 @@ class ProofStore:
             elif isinstance(proof, SuccinctProofR1CS):
                 results[key] = verify_r1cs_succinct(proof, public, r1cs,
                                                     min_params=proof.fri_params)
+            elif isinstance(proof, WitnessProofR1CS):
+                results[key] = verify_r1cs_witness(proof, public, r1cs,
+                                                   min_params=proof.fri_params)
+            elif isinstance(proof, CompactProofR1CS):
+                results[key] = verify_r1cs_compact(proof, public, r1cs)
             else:
                 results[key] = False
         return results

@@ -8,7 +8,7 @@ n = 64, k = 1, ``FriParams(log_blowup=3, num_queries=8)``; and S = 1. Both
 verifiers must accept each other's proofs and reject the JAX tests'
 tampered ones (``tests/test_aggregate.py``). The device pieces the
 aggregate adds (``deep_combine_device(lam_tables=...)``,
-``sum_statements_device``, ``fri_open(n_groups=...)``) are held against
+``sum_statements_device``, ``fri_open`` over one group in S trees) are held against
 the JAX host DEEP loop and ``fri_prove``.
 
 The JAX package is imported inside fixtures, so the ``cuda`` test at the
@@ -278,8 +278,9 @@ def test_sum_statements_equals_sequential_sum(s):
 
 @pytest.mark.parametrize("s", [1, 3])
 def test_fri_open_n_groups_equals_jax_fri_prove(jx, s):
-    """One FRI statement over S group trees (fri_prove_device with
-    n_groups = S) gives the JAX host fri_prove's bytes on the same inputs."""
+    """One FRI statement over S group trees (fri_prove_device with one
+    input group of 4 S oracles in S trees) gives the JAX host fri_prove's
+    bytes on the same inputs."""
     n0 = 128
     cw = _codewords(s, n0, 3 + s)
     offset, omega = coset_offset(GL), root_of_order(GL, n0)
@@ -295,21 +296,25 @@ def test_fri_open_n_groups_equals_jax_fri_prove(jx, s):
     tr.absorb(b"seed", b"aggregate")
     vals = modarith.to_words(cw)
     forest = fri_device.commit_planes_dev_groups(vals)
-    mine = fri_device.fri_prove_device(modarith.to_words(g)[None], vals.reshape(1, 4 * s, n0),
-                                       forest, offset, omega, GL, FAST, [tr], n_groups=s)[0]
+    mine = fri_device.fri_prove_device(modarith.to_words(g)[None],
+                                       [(vals.reshape(1, 4 * s, n0), forest)], offset, omega,
+                                       GL, FAST, [tr])[0]
     assert mine.to_bytes() == theirs.to_bytes()
     assert all(len(qy.input_openings) == s for qy in mine.queries)
 
 
 def test_fri_prove_device_refuses_a_forest_of_the_wrong_size():
+    """8 oracles over a forest of 3 trees, and a g of two rows over one
+    FRI statement's codewords, are refused before any work."""
     n0 = 64
-    vals = modarith.to_words(_codewords(2, n0, 4))
-    forest = fri_device.commit_planes_dev_groups(vals)
-    g = torch.zeros((1, n0), dtype=torch.int64)
-    with pytest.raises(ValueError, match="disagree on shape"):
-        fri_device.fri_prove_device(g, vals.reshape(1, 8, n0), forest, coset_offset(GL),
-                                    root_of_order(GL, n0), GL, FAST, [FriTranscript()],
-                                    n_groups=3)
+    vals = modarith.to_words(_codewords(2, n0, 4)).reshape(1, 8, n0)
+    three = fri_device.commit_planes_dev_groups(modarith.to_words(_codewords(3, n0, 5)))
+    two = fri_device.commit_planes_dev_groups(vals.reshape(2, 4, n0))
+    for g, forest in ((torch.zeros((1, n0), dtype=torch.int64), three),
+                      (torch.zeros((2, n0), dtype=torch.int64), two)):
+        with pytest.raises(ValueError, match="disagree on shape"):
+            fri_device.fri_prove_device(g, [(vals, forest)], coset_offset(GL),
+                                        root_of_order(GL, n0), GL, FAST, [FriTranscript()])
 
 
 def test_statement_opening_round_trip(proved):

@@ -151,3 +151,23 @@ def test_compact_truncation_is_typed(ctxs, cut):
         port.deserialize_any(good[:cut])
     assert type(theirs.value).__name__ == "SerializationError"
     assert str(mine.value) == str(theirs.value)
+
+
+def test_compact_proofs_verify_in_both_stores(ctxs, tmp_path):
+    """A kind-4 and a kind-5 proof saved to the port's store and to the
+    JAX package's: every store's ``verify_all`` gives True, and each
+    package reads the other's directory alike."""
+    from lambda_snark_tpu.utils.artifacts import ProofStore as JaxStore
+
+    jctx, ours = ctxs
+    jr, w = CASES["mult_gate"]()
+    pr = _port_r1cs(jr)
+    public = pr.public_inputs(w)
+    mine, theirs = port.ProofStore(str(tmp_path / "port")), JaxStore(str(tmp_path / "jax"))
+    for seed, kw in ((3, {}), (4, dict(zk=True, blinding_seed=5))):
+        mine.save(pr, public, seed, port.prove_r1cs_compact(pr, w, ours, seed, **kw))
+        theirs.save(jr, public, seed, jcompact.prove_r1cs_compact(jr, w, jctx, seed, **kw))
+    for store, r1cs in ((mine, pr), (theirs, jr), (port.ProofStore(theirs.root), pr),
+                        (JaxStore(mine.root), jr)):
+        results = store.verify_all(r1cs)
+        assert len(results) == 2 and all(results.values())

@@ -99,7 +99,8 @@ def test_host_golden_path_is_walked_by_the_import_rule(name):
 
 @pytest.mark.parametrize("entry", ["resolve", "commit_context", "prove", "succinct_batch",
                                    "succinct", "succinct_zk", "succinct_stream", "aggregate",
-                                   "succinct_host_route"])
+                                   "succinct_host_route", "witness", "witness_batch",
+                                   "witness_stream", "witness_host_route"])
 def test_entry_points_default_to_cuda(entry):
     _no_card()
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -124,22 +125,32 @@ def test_entry_points_default_to_cuda(entry):
                 port.prove_r1cs_succinct_stream(r1cs, [witness], _ctx(), 1)
             elif entry == "aggregate":
                 port.prove_r1cs_succinct_aggregate(r1cs, [witness], _ctx(), [1])
-            elif entry == "succinct_host_route":
+            elif entry in ("succinct_host_route", "witness_host_route"):
                 # a 44-bit circuit proves on the host, but the entry point
                 # still resolves its device first
                 r1cs = port.multiplication_gates_circuit(8, Q)
-                port.prove_r1cs_succinct(r1cs, port.multiplication_gates_witness(8, Q),
-                                         _ctx(), 1)
+                prove = port.prove_r1cs_succinct if entry == "succinct_host_route" else \
+                    port.prove_r1cs_witness
+                prove(r1cs, port.multiplication_gates_witness(8, Q), _ctx(), 1)
+            elif entry == "witness":
+                port.prove_r1cs_witness(r1cs, witness, _ctx(), 1)
+            elif entry == "witness_batch":
+                port.prove_r1cs_witness_batch(r1cs, [witness], _ctx(), [1])
+            elif entry == "witness_stream":
+                port.prove_r1cs_succinct_stream(r1cs, [witness], _ctx(), 1, witness_bind=True)
             else:
                 port.prove_r1cs_succinct_batch(r1cs, [witness], _ctx(), [1])
 
 
-SLICE_MODULES = ["proof.aggregate", "proof.compact", "proof.checks"]
+SLICE_MODULES = ["proof.aggregate", "proof.compact", "proof.checks", "proof.succinct_witness",
+                 "proof.succinct_witness_device"]
+#: the slice modules whose entry points take ``device``
+DEVICE_MODULES = ("proof.aggregate", "proof.succinct_witness", "proof.succinct_witness_device")
 
 
 @pytest.mark.parametrize("name", SLICE_MODULES)
 def test_slice_modules_are_walked_by_the_import_rule(name):
-    """The kind-8, compact and phase-2 modules are among those that
+    """The kind-8, compact, phase-2 and kind-9 modules are among those that
     ``test_every_module_imports_without_jax`` imports; the host-only ones
     name no device."""
     assert f"lambda_snark_tpu_torch.{name}" in _port_modules()
@@ -147,18 +158,14 @@ def test_slice_modules_are_walked_by_the_import_rule(name):
         tree = ast.parse(f.read())
     params = [a.arg for node in ast.walk(tree) if isinstance(node, ast.FunctionDef)
               for a in node.args.args + node.args.kwonlyargs]
-    assert ("device" in params) == (name == "proof.aggregate")
+    assert ("device" in params) == (name in DEVICE_MODULES)
 
 
 @pytest.mark.parametrize("kind", range(1, 10))
 def test_deserialize_any_refuses_only_kind_9(kind):
-    """Kinds 1 to 8 decode (a body of zeros fails as malformed, not as
-    unported); kind 9 is refused naming ROADMAP A.4b."""
+    """Kinds 1 to 9 all decode: a body of zeros fails as malformed, and
+    never as a kind the port has not ported."""
     blob = b"LSNKTPU1" + bytes([kind]) + bytes(64)
-    if kind == 9:
-        with pytest.raises(port.SerializationError, match="kind 9: .*ROADMAP A.4b.*not ported"):
-            port.deserialize_any(blob)
-        return
     try:
         port.deserialize_any(blob)
     except port.SerializationError as exc:

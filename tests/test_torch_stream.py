@@ -111,18 +111,23 @@ def test_stream_invalid_witness_names_its_stream_index(setup):
 
 
 def test_store_records_kinds_it_cannot_load(setup, tmp_path):
-    """A stored proof of a kind the port does not decode yet verifies False
-    with the reason, as an unknown type does in the JAX package."""
-    _jax_ctx, _jr, ctx, pr, ws = setup
+    """A stored blob whose kind byte was rewritten (a kind-2 body under
+    kind 9) does not decode: both packages' ``verify_all`` raise the same
+    SerializationError on it (every kind decodes, so the port records no
+    failure of its own)."""
+    _jax_ctx, jr, ctx, pr, ws = setup
     store = port.ProofStore(str(tmp_path))
     proof = port.prove_r1cs_batched(pr, ws[:1], ctx, 3, device="cpu")[0]
     key = store.save(pr, [1], 3, proof)
     blob = os.path.join(store.root, store._manifest[key]["proof_blob"] + ".proof")
     with open(blob, "r+b") as f:
         f.seek(8)
-        f.write(bytes([9]))  # now a committed-witness (kind-9) proof
-    assert store.verify_all(pr) == {key: False}
-    assert "kind 9" in store.failures[key] and "A.4b" in store.failures[key]
+        f.write(bytes([9]))  # now a malformed committed-witness (kind-9) proof
+    with pytest.raises(J.SerializationError) as theirs:
+        jax_artifacts.ProofStore(str(tmp_path)).verify_all(jr)
+    with pytest.raises(port.SerializationError) as mine:
+        store.verify_all(pr)
+    assert str(mine.value) == str(theirs.value)
 
 
 def test_entry_matches_jax_entry():

@@ -7,7 +7,7 @@ against the JAX package, on the CPU (m = 16, ring n = 64, k = 1,
 - the stream's bytes do not depend on its batch size and equal JAX's
   stream, plain and ZK, with per-index seeds (``_index_seed``);
 - a ``ProofStore`` resume serves the stored statements byte-identical;
-- ``witness_bind=True`` (kind 9) raises naming its queue item."""
+- ``witness_bind=True`` (kind 9) gives the JAX stream's bytes."""
 
 import numpy as np
 import pytest
@@ -145,9 +145,18 @@ def test_store_resume_byte_identical(tmp_path, setup_):
 
 
 def test_witness_bind_not_ported(setup_):
-    _jax_ctx, ours, _jr, pr = setup_
-    with pytest.raises(NotImplementedError, match="A.4b"):
-        port.prove_r1cs_succinct_stream(pr, [], ours, 1, witness_bind=True, device="cpu")
+    """``witness_bind=True`` proves: kind-9 proofs under the labels
+    ``succinct-w-{index}``, the JAX stream's bytes (the store and ZK cases:
+    ``tests/test_torch_witness_stream.py``)."""
+    jax_ctx, ours, jr, pr = setup_
+    ws = [mult_witness(M, GL, seed=i) for i in range(2)]
+    theirs = list(jax_stream(jr, ws, jax_ctx, 1, fri_params=JaxFriParams(*FAST),
+                             witness_bind=True, device_lde=False))
+    mine = list(port.prove_r1cs_succinct_stream(pr, ws, ours, 1, fri_params=FriParams(*FAST),
+                                                witness_bind=True, device="cpu"))
+    assert [i for i, _p in mine] == [0, 1]
+    assert [type(p).__name__ for _i, p in mine] == ["WitnessProofR1CS"] * 2
+    assert _bytes(p for _i, p in mine) == _bytes(p for _i, p in theirs)
 
 
 def test_stream_of_numpy_witnesses(setup_):

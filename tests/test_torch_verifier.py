@@ -1,7 +1,8 @@
 """The port's proof decoding and kind-2/3/6 verifiers against the JAX
 package, on the CPU: ``deserialize_any`` both ways for kinds 2, 3, 6 and 7
-(kind 1: ``tests/test_torch_host_prover.py``),
-the kinds it refuses and why, the same decisions on valid and tampered
+(kind 1: ``tests/test_torch_host_prover.py``; kind 9:
+``tests/test_torch_witness.py``), malformed bodies of kinds 4, 5, 8 and 9
+refused as JAX refuses them, the same decisions on valid and tampered
 proofs, the opening check and ``Polynomial``, and the parameter lists of
 the ported entry points (C.2: JAX's order, then ``device``)."""
 
@@ -92,13 +93,9 @@ def test_jax_reads_port_bytes(setup, zk):
 
 @pytest.mark.parametrize("kind", [4, 5, 8, 9])
 def test_deserialize_any_refuses_kinds_not_ported(kind):
-    """Kind 9 is refused naming its queue item; kinds 4, 5 and 8 are
-    decoded, so a body of zeros is refused as the JAX package refuses it."""
+    """Kinds 4, 5, 8 and 9 are decoded (no kind is left unported), so a
+    body of zeros is refused as the JAX package refuses it."""
     blob = b"LSNKTPU1" + bytes([kind]) + bytes(64)
-    if kind == 9:
-        with pytest.raises(SerializationError, match="proof kind 9: .*ROADMAP A.4b"):
-            port.deserialize_any(blob)
-        return
     with pytest.raises(J.SerializationError) as theirs:
         jax_deserialize(blob)
     with pytest.raises(SerializationError) as mine:
