@@ -10,7 +10,10 @@ Phases, each printing one flushed line with the seconds since start:
    (one ``nvcc`` per source, started together), each kernel function's
    registers and spills, and the SASS instruction mix of kernel T's
    ``dft_pass``, kernel K's forest kernel (G = 1 and 4, the kind-7 path's;
-   2, 5 and 6, kind 9's) and kernels Q and R at each cluster size;
+   2, 5 and 6, kind 9's) and kernels Q and R at each cluster size; beside
+   them, the native host library (``native_bridge``, ``g++`` on
+   ``native/src``) where there is a C++ compiler: a failed build fails the
+   script;
 3. kernel Q against its plain PyTorch twin at B = 256, bit-exact: the 44-bit
    field at m = 4096 (plain prover) and m = 2048 (ZK prover), Goldilocks at
    m = 4096, each at the cluster size ``kernels.cluster_size`` picks;
@@ -124,11 +127,30 @@ Phases, each printing one flushed line with the seconds since start:
     ``ProofStore`` resume): every proof verifies, the stream's bytes are one
     batch's; then kernels K, T, Q and R at every shape each run launched
     them at, as in 18;
+25. the command line (``cli.main`` in this process, the entry point of
+    ``python -m lambda_snark_tpu_torch``), on circuit, witness and context
+    files in a temporary directory (contexts from its own ``setup``):
+    ``prove-stream --succinct --batch 16`` at k7a (m = 2^13, S = 16, ring
+    n = 8192, k = 1), ``prove --witness-bind`` at m = 2^12 plain and
+    ``--zk``, and ``prove-stream`` of 256 witnesses at m = 4096 (and
+    ``--zk`` at m = 2048) over the 44-bit field, ring n = 4096, k = 2:
+    every proof file equals the library call's bytes on the same inputs
+    (``prove_r1cs_succinct_stream``, ``prove_r1cs_witness``,
+    ``prove_r1cs_stream``), ``verify`` accepts (exit 0) and a flipped FRI
+    path byte exits 1, the launches equal phases 11 and 24's (kernels Q and
+    R once a batch for kinds 2/3), and a ``--store`` run cut after 128
+    proofs resumes with the same bytes; the native host library is built
+    and the host verifier decides the same with it and without it (both
+    rates printed); ``fuzz --iterations 200`` on the card gives the CPU
+    run's counts; ``python -m lambda_snark_tpu_torch info`` in a process
+    of its own names the card and imports neither ``jax`` nor
+    ``lambda_snark_tpu``; then kernels K, T, Q and R at every shape the
+    command line launched them at, as in 18;
 
 then the JSON lines: kind 7 at m = 2^13 (proofs/s, breakdown, idle share),
 kind 7 at m = 2^14, the streams, ZK kind 7, the pipelined prover, the
 kind-7 stream, the host path, kind 8 (one line per shape), the host routes,
-kind 9, and the ``kernels`` line: for each kernel
+kind 9, the command line, and the ``kernels`` line: for each kernel
 on each path its time, its plain twin's time, its bound and its launches in
 that path's run, counted per C entry (the four-step NTT's entry launches
 two kernels, one per pass) and, for kernels K and T on the m = 2^14 kind-7
@@ -155,12 +177,9 @@ BATCH = 256
 M_PLAIN, M_ZK, RING_N, RING_K, SIGMA = 4096, 2048, 4096, 2, 3.19
 CHECK_ROWS = 8  # proofs compared byte for byte with a CPU run
 
-# Bounds on an H100 SXM (NVIDIA data sheet): 3.35 TB/s of device memory, and
-# 64 INT32 lanes per SM x 132 SMs x 1.98 GHz boost = 16.7 T 32-bit integer
-# operations/s (the data sheet's 67 TFLOP/s float32 is 128 lanes x 2 flops
-# per FMA at the same clock).
-MEM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# Bounds on the H100 (3.35 TB/s of device memory, 16.7 T 32-bit integer
+# operations/s, from NVIDIA's data sheet) come from the port's
+# ``utils.timing.H100`` (``bound_ms``).
 # Least 32-bit integer instructions per 64-bit modular operation, from the
 # kernels' arithmetic (csrc/modmath.cuh): a 64 x 64 -> 128 product is four
 # 32 x 32 -> 64 multiplies; Barrett (44-bit field) adds two more partial
@@ -303,9 +322,12 @@ def max_abs_err(np, modarith, got, want) -> float:
 
 
 def bound_ms(nbytes: float, ops: float):
-    t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
-    t_ops = ops / INT32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """The least time in ms of work moving ``nbytes`` bytes and doing
+    ``ops`` 32-bit integer operations on the H100, and which bounds it."""
+    from lambda_snark_tpu_torch.utils.timing import roofline
+
+    r = roofline(nbytes, ops)
+    return r["speed_of_light_s"] * 1e3, r["bound_by"]
 
 
 def quotient_work(rows: int, m: int, field: str):
@@ -523,6 +545,19 @@ def kind7_circuit(lst, m: int):
     return builder.build()
 
 
+def tamper_fri_path(proof):
+    """``proof`` with one byte flipped in its first query's first path."""
+    import dataclasses
+
+    q0 = proof.fri.queries[0]
+    field_name = "layer_openings" if q0.layer_openings else "input_openings"
+    ops = getattr(q0, field_name)
+    bad_op = dataclasses.replace(ops[0], path=bytes([ops[0].path[0] ^ 1]) + ops[0].path[1:])
+    bad_q = dataclasses.replace(q0, **{field_name: (bad_op,) + ops[1:]})
+    return dataclasses.replace(proof, fri=dataclasses.replace(
+        proof.fri, queries=(bad_q,) + proof.fri.queries[1:]))
+
+
 def reject_tampered(proof, r1cs, q: int, label: str) -> None:
     """A kind-7 proof with a flipped byte in a FRI path, and one with a
     flipped ``q_alpha``, must not verify."""
@@ -530,16 +565,8 @@ def reject_tampered(proof, r1cs, q: int, label: str) -> None:
 
     from lambda_snark_tpu_torch.proof.succinct import verify_r1cs_succinct
 
-    q0 = proof.fri.queries[0]
-    field_name = "layer_openings" if q0.layer_openings else "input_openings"
-    ops = getattr(q0, field_name)
-    bad_op = dataclasses.replace(ops[0], path=bytes([ops[0].path[0] ^ 1]) + ops[0].path[1:])
-    bad_q = dataclasses.replace(q0, **{field_name: (bad_op,) + ops[1:]})
-    tampered = [
-        dataclasses.replace(proof, fri=dataclasses.replace(
-            proof.fri, queries=(bad_q,) + proof.fri.queries[1:])),
-        dataclasses.replace(proof, q_alpha=(proof.q_alpha + 1) % q),
-    ]
+    tampered = [tamper_fri_path(proof),
+                dataclasses.replace(proof, q_alpha=(proof.q_alpha + 1) % q)]
     if any(verify_r1cs_succinct(p, [1], r1cs) for p in tampered):
         raise RuntimeError(f"{label}: a tampered proof verified")
 
@@ -1440,14 +1467,8 @@ def reject_tampered_witness(proof, r1cs, label: str) -> None:
 
     from lambda_snark_tpu_torch.proof.succinct_witness import verify_r1cs_witness
 
-    q0 = proof.fri.queries[0]
-    field_name = "layer_openings" if q0.layer_openings else "input_openings"
-    ops = getattr(q0, field_name)
-    bad_op = dataclasses.replace(ops[0], path=bytes([ops[0].path[0] ^ 1]) + ops[0].path[1:])
-    bad_q = dataclasses.replace(q0, **{field_name: (bad_op,) + ops[1:]})
     tampered = [
-        (dataclasses.replace(proof, fri=dataclasses.replace(
-            proof.fri, queries=(bad_q,) + proof.fri.queries[1:])), [1]),
+        (tamper_fri_path(proof), [1]),
         (dataclasses.replace(proof, evals_gamma=(proof.evals_gamma[0] ^ 1,)
                              + proof.evals_gamma[1:]), [1]),
         (proof, [2]),
@@ -1801,6 +1822,343 @@ def hold_path_shapes(np, torch, lst, dev, rng, hold, shapes, held, tag, ctx, num
     return out
 
 
+# the command line's phase (25): kind 7 at k7a through prove-stream
+# --succinct, kind 9 at m = 2^12 through prove --witness-bind (plain and
+# ZK), kinds 2/3 through prove-stream at B = 256 (a store resume in batches
+# of 128), the native host verifier, and fuzz on the card and on the CPU
+CLI_SEED = 0x5EED
+CLI_CUT = BATCH // 2
+CLI_FUZZ_ITERATIONS = 200
+CLI_STREAM_LAUNCHES = {"quotient_q45": 1, "ring_commit_goldilocks": 1}  # one batch of B
+
+
+def write_circuit(path: str, r1cs) -> str:
+    """``cli._load_circuit``'s {"a", "b", "c"} COO form of ``r1cs``."""
+    data = {"m": r1cs.m, "n": r1cs.n, "l": r1cs.l, "modulus": r1cs.modulus}
+    for side, mat in (("a", r1cs.a), ("b", r1cs.b), ("c", r1cs.c)):
+        data[side] = [{"row": i, "col": j, "value": int(v)} for i, j, v in mat.coo()]
+    with open(path, "w") as f:
+        json.dump(data, f)
+    return path
+
+
+def write_json(path: str, data) -> str:
+    with open(path, "w") as f:
+        json.dump(data, f)
+    return path
+
+
+def cli_run(argv) -> tuple:
+    """``cli.main(argv)`` in this process: (exit code, stdout, host seconds)."""
+    import contextlib
+    import io
+
+    from lambda_snark_tpu_torch import cli
+
+    buf = io.StringIO()
+    t = time.time()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main([str(a) for a in argv])
+    return rc, buf.getvalue(), time.time() - t
+
+
+def cli_ok(argv, label: str) -> tuple:
+    rc, out, seconds = cli_run(argv)
+    if rc != 0:
+        raise RuntimeError(f"{label}: exit code {rc}: {out}")
+    return out, seconds
+
+
+def cli_verify(circuit: str, proof_path: str, public, label: str, expect: int) -> float:
+    rc, out, seconds = cli_run(["verify", "--circuit", circuit, "--proof", proof_path,
+                                "--public", ",".join(map(str, public))])
+    if rc != expect:
+        raise RuntimeError(f"{label}: verify of {os.path.basename(proof_path)} gave exit code "
+                           f"{rc}, not {expect}: {out}")
+    return seconds
+
+
+def native_build_start():
+    """Start the native host library's build (g++, beside the nvcc builds)
+    where there is a C++ compiler: (thread, result) or None."""
+    import threading
+
+    from lambda_snark_tpu_torch import native_bridge
+
+    if native_bridge.compiler() is None:
+        return None
+    result = {}
+
+    def run():
+        t = time.time()
+        try:
+            result["path"] = native_bridge.build()
+        except RuntimeError as exc:
+            result["error"] = exc
+        result["s"] = time.time() - t
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    return thread, result
+
+
+def native_build_finish(started) -> str:
+    """Wait for the native build; raise where a compiler failed it."""
+    from lambda_snark_tpu_torch import native_bridge
+
+    if started is None:
+        return "no C++ compiler on this machine: not built, the host verifier runs on hashlib"
+    thread, result = started
+    thread.join()
+    if "error" in result:
+        raise RuntimeError(f"native host library: {result['error']}")
+    if not native_bridge.available():
+        raise RuntimeError(f"native host library not loaded: {native_bridge.load_error()}")
+    root = os.path.dirname(os.path.abspath(__file__))
+    return f"built in {result['s']:.1f} s and loaded ({os.path.relpath(result['path'], root)})"
+
+
+def cli_phase(np, torch, lst, dev, rng, hold, held, report, k7, k9, smi: str):
+    """Phase 25: the port's command line (``cli.main`` in this process, as a
+    user runs ``python -m lambda_snark_tpu_torch``) on the card at the
+    slices' widths, every proof byte-equal to the library call's on the same
+    files, verified by the command line, with the kernels' launches of each
+    command; the native host verifier; fuzz on the card and the CPU; and
+    ``python -m lambda_snark_tpu_torch info`` as a process of its own.
+    Returns (``kernels`` line entries, the record)."""
+    import tempfile
+
+    from lambda_snark_tpu_torch import kernels, native_bridge
+    from lambda_snark_tpu_torch.proof import fri as port_fri
+
+    gl, q45 = lst.NTT_MODULUS, lst.NTT_FRIENDLY_MODULUS
+    record, entries = {}, []
+    tmp_dir = tempfile.TemporaryDirectory(prefix="lsnark_cli_")
+    tmp = tmp_dir.name
+    path = lambda name: os.path.join(tmp, name)
+
+    def setup(q: int, n: int, k: int, context_seed: int):
+        cli_ok(["--modulus", q, "--ring-degree", n, "setup", "--rank", k, "--context-seed",
+                context_seed, "--out", path(f"ctx_{q}_{n}.json")], "setup")
+        params = lst.Params(lst.SecurityLevel.BITS128, lst.Profile.ring_b(n=n, k=k, q=q,
+                                                                          sigma=SIGMA))
+        return path(f"ctx_{q}_{n}.json"), lst.setup(params, context_seed=context_seed)
+
+    # --- (a) kind 7 at k7a: prove-stream --succinct --batch 16 ------------------------
+    m, s = KIND7_M, KIND7_S
+    r1cs7 = kind7_circuit(lst, m)
+    circuit7 = write_circuit(path("kind7.json"), r1cs7)
+    ws7 = kind7_witnesses(np, lst, dev, rng, s, m)
+    witnesses7 = write_json(path("kind7_w.json"), {"witnesses": ws7.tolist()})
+    ctx7_path, ctx7 = setup(gl, m, 1, 11)
+    out7 = path("kind7_out")
+    argv = ["--seed", CLI_SEED, "prove-stream", "--circuit", circuit7, "--witnesses", witnesses7,
+            "--context", ctx7_path, "--batch", s, "--succinct", "--out-dir", out7]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    line7, host7 = cli_ok(argv, "kind 7")
+    torch.cuda.synchronize()
+    launches7, shapes7 = kernels.launches(), dict(kernels.LAUNCHES)
+    check_kind7_launches(launches7, "CLI kind 7")
+    if nonzero(launches7) != nonzero(k7):
+        raise RuntimeError(f"CLI kind 7: launches {nonzero(launches7)}, phase 11 {nonzero(k7)}")
+    lib7 = [p for _i, p in lst.prove_r1cs_succinct_stream(r1cs7, list(ws7), ctx7, CLI_SEED,
+                                                          batch=s)]
+    blobs7 = []
+    for i, p in enumerate(lib7):
+        with open(os.path.join(out7, f"{i}.proof"), "rb") as f:
+            blobs7.append(f.read())
+        if blobs7[-1] != p.to_bytes():
+            raise RuntimeError(f"CLI kind 7: {i}.proof differs from prove_r1cs_succinct_stream")
+    verify7 = [cli_verify(circuit7, os.path.join(out7, f"{i}.proof"), [1], "CLI kind 7", 0)
+               for i in range(s)]
+    bad7 = tamper_fri_path(lib7[0])
+    with open(path("kind7_bad.proof"), "wb") as f:
+        f.write(bad7.to_bytes())
+    cli_verify(circuit7, path("kind7_bad.proof"), [1], "CLI kind 7 tampered", 1)
+    record["kind7"] = dict(m=m, statements=s, end_to_end_s=host7, proofs_per_s=s / host7,
+                           verify_s=verify7, launches=nonzero(launches7))
+    phase(f"phase 25 CLI prove-stream --succinct m={m} S={s}: {line7.strip()}; every "
+          f"<i>.proof equals prove_r1cs_succinct_stream's bytes, verify ACCEPT (exit 0) on each "
+          f"(median {sorted(verify7)[s // 2]:.3f} s a call), a flipped FRI path byte exit 1; "
+          f"launches {nonzero(launches7)} (phase 11's); {host7:.3f} s host "
+          f"({s / host7:.2f} proofs/s, JSON load included)")
+    entries += hold_path_shapes(np, torch, lst, dev, rng, hold, shapes7, held, "cli_kind7",
+                                ctx7, 25)
+
+    # --- (b) kind 9 at m = 2^12: prove --witness-bind, plain and ZK --------------------
+    m9 = KIND9_M
+    r1cs9 = kind7_circuit(lst, m9)
+    circuit9 = write_circuit(path("kind9.json"), r1cs9)
+    w9 = kind7_witnesses(np, lst, dev, rng, 1, m9)[0]
+    witness9 = write_json(path("kind9_w.json"), w9.tolist())
+    ctx9_path, ctx9 = setup(gl, m9, 1, 0)
+    record["kind9"] = {}
+    for zk in (False, True):
+        label = "kind9_zk" if zk else "kind9"
+        out9 = path(f"{label}.proof")
+        argv = ["--seed", 700, "prove", "--circuit", circuit9, "--witness", witness9,
+                "--context", ctx9_path, "--witness-bind", "--out", out9]
+        if zk:
+            argv += ["--zk", "--blinding-seed", 900]
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        line9, host9 = cli_ok(argv, f"CLI {label}")
+        torch.cuda.synchronize()
+        launches9, shapes9 = kernels.launches(), dict(kernels.LAUNCHES)
+        if nonzero(launches9) != nonzero(k9[zk]):
+            raise RuntimeError(f"CLI {label}: launches {nonzero(launches9)}, phase 24 "
+                               f"{nonzero(k9[zk])}")
+        lib9 = lst.prove_r1cs_witness(r1cs9, w9, ctx9, 700, zk=zk, blinding_seed=900)
+        with open(out9, "rb") as f:
+            if f.read() != lib9.to_bytes():
+                raise RuntimeError(f"CLI {label}: the proof differs from prove_r1cs_witness")
+        verify9 = cli_verify(circuit9, out9, [1], f"CLI {label}", 0)
+        with open(path(f"{label}_bad.proof"), "wb") as f:
+            f.write(tamper_fri_path(lib9).to_bytes())
+        cli_verify(circuit9, path(f"{label}_bad.proof"), [1], f"CLI {label} tampered", 1)
+        record["kind9"][label] = dict(m=m9, end_to_end_s=host9, verify_s=verify9,
+                                      launches=nonzero(launches9))
+        phase(f"phase 25 CLI prove --witness-bind{' --zk' if zk else ''} m={m9}: "
+              f"{line9.strip()}; the bytes equal prove_r1cs_witness's, verify ACCEPT "
+              f"({verify9:.3f} s), a flipped FRI path byte exit 1; launches "
+              f"{nonzero(launches9)} (phase 24's)")
+        entries += hold_path_shapes(np, torch, lst, dev, rng, hold, shapes9, held,
+                                    f"cli_{label}", ctx9, 25)
+
+    # --- (c) kinds 2/3: prove-stream at B = 256, plain m = 4096, ZK m = 2048 -----------
+    ctx23_path, ctx23 = setup(q45, RING_N, RING_K, 1)
+    record["kinds23"] = {}
+    src = "lambda_snark_tpu_torch/csrc"
+    quotient_src = ("lambda_snark_tpu/ops/ntt_mxu_q45.py:466; "
+                    "lambda_snark_tpu/ops/quotient_pallas.py:143")
+    ring_src = "lambda_snark_tpu/ops/ring_mxu.py:229; lambda_snark_tpu/ops/ring_pallas.py:230"
+    for label, m23, zk in (("stream", M_PLAIN, False), ("stream_zk", M_ZK, True)):
+        r1cs = lst.multiplication_gates_circuit(m23, q45)
+        circuit = write_circuit(path(f"{label}.json"), r1cs)
+        wa = rng.integers(1, q45, size=(BATCH, m23), dtype=np.uint64)
+        wb = rng.integers(1, q45, size=(BATCH, m23), dtype=np.uint64)
+        wc = (wa.astype(object) * wb.astype(object)) % q45
+        ws = np.concatenate([np.ones((BATCH, 1), object), wa.astype(object),
+                             wb.astype(object), wc], axis=1).tolist()
+        witnesses = write_json(path(f"{label}_w.json"), ws)
+        out = path(f"{label}_out")
+        flags = ["--zk", "--blinding-seed", 5] if zk else []
+        argv = ["--seed", CLI_SEED, "prove-stream", "--circuit", circuit, "--witnesses",
+                witnesses, "--context", ctx23_path, "--batch", BATCH, "--out-dir", out, *flags]
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        line, host = cli_ok(argv, f"CLI {label}")
+        torch.cuda.synchronize()
+        launches = kernels.launches()
+        if nonzero(launches) != CLI_STREAM_LAUNCHES:
+            raise RuntimeError(f"CLI {label}: launches {nonzero(launches)}, not Q and R once")
+        lib = list(lst.prove_r1cs_stream(r1cs, iter(ws), ctx23, CLI_SEED, batch=BATCH, zk=zk,
+                                         blinding_seed=5 if zk else None))
+        for i, p in enumerate(lib):
+            with open(os.path.join(out, f"{i}.proof"), "rb") as f:
+                if f.read() != p.to_bytes():
+                    raise RuntimeError(f"CLI {label}: {i}.proof differs from prove_r1cs_stream")
+        for i in (0, BATCH - 1):
+            cli_verify(circuit, os.path.join(out, f"{i}.proof"), r1cs.public_inputs(ws[i]),
+                       f"CLI {label}", 0)
+        resumed = None
+        if not zk:
+            # a run cut after one batch of 128, then the full run over its store
+            store = path("store")
+            cut = write_json(path("cut_w.json"), ws[:CLI_CUT])
+            common = ["--seed", CLI_SEED, "prove-stream", "--circuit", circuit, "--context",
+                      ctx23_path, "--batch", CLI_CUT, "--store", store]
+            cli_ok([*common, "--witnesses", cut], "CLI stream cut run")
+            held_after_cut = len(lst.ProofStore(store).keys())
+            cli_ok([*common, "--witnesses", witnesses, "--out-dir", path("resumed")],
+                   "CLI stream resumed run")
+            lib_r = list(lst.prove_r1cs_stream(r1cs, iter(ws), ctx23, CLI_SEED, batch=CLI_CUT))
+            for i, p in enumerate(lib_r):
+                with open(os.path.join(path("resumed"), f"{i}.proof"), "rb") as f:
+                    if f.read() != p.to_bytes():
+                        raise RuntimeError(f"CLI stream resume: {i}.proof differs")
+            keys = lst.ProofStore(store).keys()
+            if held_after_cut != CLI_CUT or len(keys) != BATCH:
+                raise RuntimeError(f"CLI stream resume: the store held {held_after_cut}, then "
+                                   f"{len(keys)}")
+            resumed = f"; --store: a run cut after {CLI_CUT} proofs, then the full run in " \
+                      f"batches of {CLI_CUT}, the library's bytes, the store holds all {BATCH}"
+        record["kinds23"][label] = dict(m=m23, proofs=BATCH, end_to_end_s=host,
+                                        proofs_per_s=BATCH / host, launches=nonzero(launches))
+        phase(f"phase 25 CLI prove-stream{' --zk' if zk else ''} m={m23} B={BATCH}: "
+              f"{line.strip()}; every proof equals prove_r1cs_stream's bytes, proofs 0 and "
+              f"{BATCH - 1} verify ACCEPT{resumed or ''}; launches {nonzero(launches)}; "
+              f"{host:.3f} s host ({BATCH / host:.1f} proofs/s, JSON load included)")
+        sfx = "_zk" if zk else ""
+        entries += [
+            dict(name=f"quotient_q45_cli_{label}", route="cuda", source=f"{src}/quotient.cu",
+                 replaces=quotient_src, launches=launches["quotient_q45"],
+                 **report[f"quotient_q45{sfx}"], library_ms=None),
+            dict(name=f"ring_commit_goldilocks_cli_{label}", route="cuda",
+                 source=f"{src}/ring_commit.cu", replaces=ring_src,
+                 launches=launches["ring_commit_goldilocks"], **report[f"ring_commit{sfx}"],
+                 library_ms=None)]
+
+    # --- (d) the native library (built in phase 2) and the host verifier ----------------
+    proofs7 = [lst.deserialize_any(b) for b in blobs7]
+    if native_bridge.compiler() is None:
+        phase("phase 25 native library: no C++ compiler on this machine; the host verifier "
+              "runs on hashlib alone")
+        record["native"] = None
+    else:
+        if not native_bridge.available():
+            raise RuntimeError(f"native library not loaded: {native_bridge.load_error()}")
+        lib_path = native_bridge.build()
+        rates = {}
+        saved = port_fri.NATIVE_VERIFY
+        try:
+            for flag in (True, False):
+                port_fri.NATIVE_VERIFY = flag
+                t = time.time()
+                ok = [lst.verify_r1cs_succinct(p, [1], r1cs7) for p in proofs7]
+                rates["native" if flag else "hashlib"] = len(ok) / (time.time() - t)
+                if not all(ok) or lst.verify_r1cs_succinct(bad7, [1], r1cs7):
+                    raise RuntimeError(f"NATIVE_VERIFY={flag}: a wrong decision on kind 7")
+        finally:
+            port_fri.NATIVE_VERIFY = saved
+        record["native"] = dict(verify_statements_per_s=rates, card=smi)
+        phase(f"phase 25 native library: loaded "
+              f"({os.path.relpath(lib_path, os.path.dirname(os.path.abspath(__file__)))}); "
+              f"the host verifier decides the same with NATIVE_VERIFY on and "
+              f"off ({s} proofs accepted, the tampered one rejected); kind-7 verify "
+              f"{rates['native']:.1f} statements/s native, {rates['hashlib']:.1f} hashlib ({smi})")
+
+    # --- (e) fuzz on the card, against the CPU run of the same seed ---------------------
+    fuzz_out = {}
+    for device in ("cuda", "cpu"):
+        fuzz_out[device], seconds = cli_ok(["--device", device, "fuzz", "--iterations",
+                                            CLI_FUZZ_ITERATIONS], f"fuzz on {device}")
+        record[f"fuzz_{device}_s"] = seconds
+    if fuzz_out["cuda"] != fuzz_out["cpu"] or not fuzz_out["cuda"].endswith("fuzz: OK\n"):
+        raise RuntimeError(f"fuzz: the card's run {fuzz_out['cuda']!r} differs from the CPU's "
+                           f"{fuzz_out['cpu']!r}")
+    phase(f"phase 25 CLI fuzz --iterations {CLI_FUZZ_ITERATIONS} --device cuda: no crash, the "
+          f"CPU run's counts: {' | '.join(fuzz_out['cuda'].strip().splitlines())}")
+
+    # --- python -m lambda_snark_tpu_torch info, a process of its own ---------------------
+    root = os.path.dirname(os.path.abspath(__file__))
+    info = subprocess.run([sys.executable, "-X", "importtime", "-m", "lambda_snark_tpu_torch",
+                           "info"], capture_output=True, text=True, cwd=root, timeout=300)
+    imported = {ln.rsplit("|", 1)[-1].strip() for ln in info.stderr.splitlines()
+                if ln.startswith("import time:")}
+    foreign = sorted(n for n in imported if n.split(".")[0] in ("jax", "lambda_snark_tpu"))
+    kind = torch.cuda.get_device_name(0)
+    if info.returncode != 0 or kind not in info.stdout or foreign or not imported:
+        raise RuntimeError(f"python -m lambda_snark_tpu_torch info: rc {info.returncode}, "
+                           f"imported {foreign}: {info.stdout} {info.stderr[-2000:]}")
+    phase(f"phase 25 python -m lambda_snark_tpu_torch info: names the card "
+          f"({[ln for ln in info.stdout.splitlines() if kind in ln][0].strip()}); "
+          f"{len(imported)} modules imported, none of jax or lambda_snark_tpu")
+    tmp_dir.cleanup()
+    return entries, record
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1843,9 +2201,11 @@ def main() -> int:
     print(smi, flush=True)
 
     t = time.time()
+    native = native_build_start()
     paths = kernels.build()
     phase(f"phase 2 build: {len(paths)} libraries in {time.time() - t:.1f}s "
           f"under {os.path.relpath(kernels.build_dir())}")
+    phase(f"phase 2 native host library: {native_build_finish(native)}")
     for name in paths:
         with open(os.path.join(kernels.build_dir(), f"lib{name}.log")) as f:
             for fn, regs, spills in ptxas_resources(f.read()):
@@ -2132,9 +2492,10 @@ def main() -> int:
                                     f"kind8_{label}", kind7_context(lst, m), 22)
         kind8_lines.append({"kind8": rec, f"launches_kind8_{label}": nonzero(k8_launches)})
     host_routes = host_routes_phase(np, lst)
-    kind9 = {}
+    kind9, k9_path = {}, {}
     for zk9 in (False, True):
         k9_launches, k9_shapes, rec = kind9_phase(np, torch, lst, dev, rng, zk9)
+        k9_path[zk9] = k9_launches
         entries += hold_path_shapes(np, torch, lst, dev, rng, hold, k9_shapes, held,
                                     rec["label"], kind7_context(lst, KIND9_M), 24)
         kind9[rec["label"]] = rec
@@ -2142,6 +2503,9 @@ def main() -> int:
     for tag, _launches, shapes9, ctx9 in runs:
         entries += hold_path_shapes(np, torch, lst, dev, rng, hold, shapes9, held, tag, ctx9, 24)
     kind9["launches"] = {tag: nonzero(launches9) for tag, launches9, _s, _c in runs}
+    cli_entries, cli_record = cli_phase(np, torch, lst, dev, rng, hold, held, report, k7, k9_path,
+                                        smi)
+    entries += cli_entries
     print(json.dumps({"kind7": kind7}), flush=True)
     print(json.dumps({"kind7_2pow14": kind7_long, "launches_kind7_2pow14": k7_long,
                       "shape_launches_kind7_2pow14": [
@@ -2161,6 +2525,7 @@ def main() -> int:
         print(json.dumps(line), flush=True)
     print(json.dumps({"host_routes_s": host_routes}), flush=True)
     print(json.dumps({"kind9": kind9}), flush=True)
+    print(json.dumps({"cli": cli_record}), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)

@@ -1,0 +1,6 @@
+"""python -m lambda_snark_tpu_torch entry point."""
+import sys
+
+from .cli import main
+
+sys.exit(main())

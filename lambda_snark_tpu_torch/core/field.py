@@ -63,3 +63,35 @@ def horner_eval(coeffs: Sequence[int], x: int, modulus: int) -> int:
     for c in reversed(coeffs[:-1]):
         acc = (acc * x + c) % modulus
     return acc
+
+
+def is_prime(n: int) -> bool:
+    """Deterministic Miller-Rabin for u64 (12 witnesses).
+
+    Reference: ``rust-api/lambda-snark/src/lean_params.rs:175-220`` — the
+    VULN-001 guard against composite moduli such as 2^44+1 = 17 * 1034834473201.
+    """
+    if n < 2:
+        return False
+    if n in (2, 3):
+        return True
+    if n % 2 == 0:
+        return False
+    d = n - 1
+    r = 0
+    while d % 2 == 0:
+        d //= 2
+        r += 1
+    for a in (2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37):
+        if a >= n:
+            continue
+        x = pow(a, d, n)
+        if x == 1 or x == n - 1:
+            continue
+        for _ in range(r - 1):
+            x = (x * x) % n
+            if x == n - 1:
+                break
+        else:
+            return False
+    return True

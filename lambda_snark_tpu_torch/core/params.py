@@ -1,16 +1,21 @@
 """Public parameters, profiles and field constants.
 
 The port's copy of the parts of the JAX package's ``core/params.py`` that
-the provers read: the moduli, the 45-bit roots of unity, and
-``Params``/``Profile``/``SecurityLevel`` with the same validation.
+the provers read: the moduli, the 45-bit roots of unity,
+``Params``/``Profile``/``SecurityLevel`` with the same validation, and the
+zeroizing ``Witness`` wrapper.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
+from typing import Optional
+
+import numpy as np
 
 from .errors import InvalidParamsError
+from .field import is_prime
 
 #: Goldilocks prime 2^64 - 2^32 + 1 (the commitment ring's modulus).
 NTT_MODULUS = 18446744069414584321
@@ -100,3 +105,56 @@ class Params:
                 raise InvalidParamsError(f"module rank k={p.k} must be positive")
         elif p.kind != "scalar_a":
             raise InvalidParamsError(f"unknown profile kind {p.kind!r}")
+
+    def validate_strict(self) -> None:
+        """Additionally require a *prime* modulus (VULN-001 guard).
+
+        The canonical test vectors still use the composite legacy field, so
+        this check is opt-in, exactly as the reference keeps
+        ``lean_params::validate_params`` separate from ``Params::validate``.
+        """
+        self.validate()
+        if not is_prime(self.profile.q):
+            raise InvalidParamsError(
+                f"modulus q={self.profile.q} is not prime (VULN-001)"
+            )
+
+
+class Witness:
+    """Secret witness wrapper that zeroes its buffer on ``close``/GC.
+
+    Best-effort analog of the reference's zeroize-on-drop ``Witness``
+    (``lambda-snark-core/src/lib.rs:199-214``): Python cannot guarantee
+    erasure of immutable ints, so values are held in a mutable uint64 numpy
+    buffer that is explicitly wiped.
+    """
+
+    def __init__(self, values) -> None:
+        self._buf: Optional[np.ndarray] = np.asarray(
+            [int(v) & ((1 << 64) - 1) for v in values], dtype=np.uint64
+        )
+
+    def values(self) -> list:
+        if self._buf is None:
+            raise ValueError("witness has been zeroized")
+        return [int(v) for v in self._buf]
+
+    def __len__(self) -> int:
+        return 0 if self._buf is None else int(self._buf.shape[0])
+
+    def close(self) -> None:
+        if self._buf is not None:
+            self._buf.fill(0)
+            self._buf = None
+
+    def __enter__(self) -> "Witness":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def __del__(self) -> None:  # pragma: no cover - GC timing dependent
+        try:
+            self.close()
+        except Exception:
+            pass

@@ -321,5 +321,18 @@ def verify_r1cs_succinct_aggregate(proof: AggregatedProofR1CS,
             out.append(acc)
         return out[0], out[1]
 
+    # the combined quotient is the standard batched-DEEP shape: 4S columns
+    # on the lambda ladder, each statement's (alpha, beta) over its 4
+    # oracles, so the native verifier's DEEP evaluation applies
+    wa, wb, ea, eb, al, be = (np.empty(4 * s, dtype=np.uint64) for _ in range(6))
+    lam_pow = 1
+    for i in range(s):
+        for k in range(4):
+            col = 4 * i + k
+            lam2 = lam_pow * lam % q
+            wa[col], wb[col] = lam_pow, lam2
+            ea[col], eb[col] = all_evals[i][k] % q, all_evals[i][4 + k] % q
+            al[col], be[col] = alphas[i], betas[i]
+            lam_pow = lam2 * lam % q
     return fri_verify(proof.fri, [(st.input_root, 4) for st in proof.statements], g_eval, n0,
-                      offset, omega_n, q, params, tr)
+                      offset, omega_n, q, params, tr, deep=(wa, wb, ea, eb, al, be))

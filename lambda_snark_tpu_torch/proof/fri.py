@@ -8,8 +8,10 @@ The port's copy of the host parts of the JAX package's ``proof/fri.py``:
   through, and ``FriParams``;
 - ``LayerOpening``, ``GroupOpening``, ``FriQuery``, ``FriProof`` with their
   wire bytes both ways;
-- ``fri_verify``, the scalar verifier (``hashlib`` paths, Python-int field
-  math; the JAX package's native fast path is not carried over);
+- ``fri_verify``, the verifier: ``hashlib`` paths and Python-int field
+  math, or, where ``native_bridge`` loads, its batched Merkle, DEEP and
+  fold checks (the JAX package's native fast path), with the same
+  decisions;
 - the host prover: ``lde``, ``commit_codeword*``, ``_fold_codeword`` and
   ``fri_prove``, the route of every circuit off the Goldilocks fast front
   end (the 44-bit field, the healthcare prime, other Goldilocks domains).
@@ -484,6 +486,74 @@ def _query_positions(indices, n0: int, n_layers: int) -> np.ndarray:
     return pos
 
 
+#: use the native library's batched Merkle, DEEP and fold checks when it
+#: loads (tests switch it off to hold the two paths to the same decisions)
+NATIVE_VERIFY = True
+
+_native_mod = None
+
+
+def _native():
+    """The ``native_bridge`` module if its library loads, else None."""
+    global _native_mod
+    if _native_mod is None:
+        from .. import native_bridge
+
+        _native_mod = native_bridge if native_bridge.available() else False
+    return _native_mod or None
+
+
+def _verify_paths_native(proof: FriProof, groups: Sequence[Tuple[bytes, int]],
+                         indices: Sequence[int], pos: np.ndarray, n0: int,
+                         grp_vals: Sequence[np.ndarray], lay_vals: np.ndarray) -> bool:
+    """Every group and layer path of every query in a few native calls (one
+    per distinct group width and one for the layers), deciding as
+    ``verify_path`` does path by path. ``grp_vals[g]``: uint64 [q_n,
+    2 size_g] opened values; ``lay_vals``: uint64 [q_n, n_layers, 2]."""
+    nb = _native()
+    q_n = len(indices)
+    n_layers = len(proof.layer_roots)
+    depth_in = (n0 // 2).bit_length() - 1
+    layer_depths = [(n0 >> (k + 2)).bit_length() - 1 for k in range(n_layers)]
+    if q_n == 0:
+        return True
+    idx_arr = np.asarray(indices, dtype=np.uint64)
+    for size in sorted({size for _root, size in groups}):
+        g_ids = [g for g, (_r, s) in enumerate(groups) if s == size]
+        n_g, leaf_len = len(g_ids), 16 * size
+        leaves = np.empty((q_n, n_g, leaf_len), dtype=np.uint8)
+        sib = np.empty((q_n, n_g, depth_in, 32), dtype=np.uint8)
+        for j, g in enumerate(g_ids):  # query-major, group-minor lanes
+            leaves[:, j] = np.ascontiguousarray(grp_vals[g]).view(np.uint8)
+            blob = b"".join(qy.input_openings[g].path for qy in proof.queries)
+            sib[:, j] = np.frombuffer(blob, dtype=np.uint8).reshape(q_n, depth_in, 32)
+        roots = np.tile(np.frombuffer(b"".join(groups[g][0] for g in g_ids),
+                                      dtype=np.uint8).reshape(n_g, 32), (q_n, 1))
+        ok = nb.merkle_verify_batch(leaves.reshape(q_n * n_g, leaf_len),
+                                    np.repeat(idx_arr, n_g),
+                                    sib.reshape(q_n * n_g, depth_in, 32),
+                                    np.full(q_n * n_g, depth_in, dtype=np.uint32), roots)
+        if not bool(ok.all()):
+            return False
+    if n_layers == 0:
+        return True
+    lanes, max_depth = q_n * n_layers, max(layer_depths)
+    sib = np.zeros((q_n, n_layers, max_depth, 32), dtype=np.uint8)
+    blob = np.frombuffer(b"".join(op.path for qy in proof.queries for op in qy.layer_openings),
+                         dtype=np.uint8).reshape(q_n, 32 * sum(layer_depths))
+    cursor = 0
+    for k, d in enumerate(layer_depths):
+        sib[:, k, :d] = blob[:, cursor:cursor + 32 * d].reshape(q_n, d, 32)
+        cursor += 32 * d
+    roots = np.tile(np.frombuffer(b"".join(proof.layer_roots), dtype=np.uint8)
+                    .reshape(n_layers, 32), (q_n, 1))
+    ok = nb.merkle_verify_batch(
+        np.ascontiguousarray(lay_vals).reshape(lanes, 2).view(np.uint8).reshape(lanes, 16),
+        pos[:, 1:].astype(np.uint64).reshape(-1), sib.reshape(lanes, max_depth, 32),
+        np.tile(np.asarray(layer_depths, dtype=np.uint32), q_n), roots)
+    return bool(ok.all())
+
+
 def fri_verify(
     proof: FriProof,
     input_groups: Sequence,
@@ -494,6 +564,8 @@ def fri_verify(
     q: int,
     params: FriParams,
     tr: FriTranscript,
+    deep=None,
+    g_eval_batch=None,
 ) -> bool:
     """Verify a FriProof, deciding as the JAX package's ``fri_verify`` does.
 
@@ -501,7 +573,17 @@ def fri_verify(
     one). ``g_eval(index, half, lo_values, hi_values) -> (g_lo, g_hi)``
     computes the virtual oracle from the authenticated per-oracle values
     (raise DomainError to reject). Opened values must be canonical and every
-    path must have the exact tree depth."""
+    path must have the exact tree depth.
+
+    Where the native library loads (and ``NATIVE_VERIFY``), the paths, the
+    oracle and the fold walk are checked in a few C calls: ``deep``, six
+    length-``n_in`` arrays ``(wa, wb, ea, eb, alphas, betas)``, names the
+    standard batched-DEEP oracle g(x) = sum_k wa[k] (f_k(x) - ea[k]) /
+    (x - alphas[k]) + wb[k] (f_k(x) - eb[k]) / (x - betas[k]), evaluated
+    natively; else ``g_eval_batch(indices_u64, half, in_lo[q, k], in_hi[q,
+    k]) -> (g_lo[q], g_hi[q])`` evaluates it over all queries at once (kind
+    9); else ``g_eval`` query by query. Each decides as ``g_eval`` does.
+    The ``hashlib`` path with ``g_eval`` is the reference."""
     params.validate()
     d_bound = n0 >> params.log_blowup
     final_len = _effective_final_len(d_bound, params.final_len)
@@ -534,7 +616,9 @@ def fri_verify(
 
     groups = [(g, 1) if isinstance(g, (bytes, bytearray)) else (g[0], int(g[1]))
               for g in input_groups]
+    n_in = sum(size for _r, size in groups)
     n_layers = len(proof.layer_roots)
+    q_n = len(indices)
     depth_in = (n0 // 2).bit_length() - 1
     layer_depths = [(n0 >> (k + 2)).bit_length() - 1 for k in range(n_layers)]
     for query in proof.queries:
@@ -546,13 +630,47 @@ def fri_verify(
         for k, op in enumerate(query.layer_openings):
             if len(op.path) != 32 * layer_depths[k]:
                 return False
-        values = [v for op in query.input_openings for v in op.values]
-        values += [v for op in query.layer_openings for v in (op.v_lo, op.v_hi)]
-        if any(not 0 <= int(v) < q for v in values):
-            return False
+    try:
+        grp_vals = [np.array([qy.input_openings[g].values for qy in proof.queries],
+                             dtype=np.uint64).reshape(q_n, 2 * size)
+                    for g, (_root, size) in enumerate(groups)]
+        in_vals = (np.concatenate(grp_vals, axis=1).reshape(q_n, n_in, 2) if groups
+                   else np.empty((q_n, 0, 2), dtype=np.uint64))
+        lay_vals = np.array([[(op.v_lo, op.v_hi) for op in qy.layer_openings]
+                             for qy in proof.queries], dtype=np.uint64).reshape(q_n, n_layers, 2)
+    except (ValueError, OverflowError):
+        return False
+    if int(in_vals.max(initial=0)) >= q or int(lay_vals.max(initial=0)) >= q:
+        return False
 
     pos = _query_positions(indices, n0, n_layers)
     half0 = n0 // 2
+    nb = _native() if NATIVE_VERIFY else None
+    if nb is not None:
+        if not _verify_paths_native(proof, groups, indices, pos, n0, grp_vals, lay_vals):
+            return False
+        idx_arr = np.asarray(indices, dtype=np.uint64)
+        in_lo, in_hi = in_vals[:, :, 0], in_vals[:, :, 1]
+        try:
+            if deep is not None:
+                g = nb.fri_deep_g_eval(q, offset, omega, n0, idx_arr, in_lo, in_hi, *deep)
+                if g is None:
+                    return False
+                g_lo, g_hi = g
+            elif g_eval_batch is not None:
+                g_lo, g_hi = g_eval_batch(idx_arr, half0, in_lo, in_hi)
+            else:
+                g_lo = np.empty(q_n, dtype=np.uint64)
+                g_hi = np.empty(q_n, dtype=np.uint64)
+                for qi, i0 in enumerate(indices):
+                    g_lo[qi], g_hi[qi] = g_eval(i0, half0, [int(v) for v in in_lo[qi]],
+                                                [int(v) for v in in_hi[qi]])
+        except DomainError:
+            return False
+        return nb.fri_fold_walk(q, offset, omega, n0, [c % q for c in fold_challenges], idx_arr,
+                                g_lo, g_hi, lay_vals[:, :, 0], lay_vals[:, :, 1],
+                                [c % q for c in proof.final_coeffs])
+
     for qi, (i0, query) in enumerate(zip(indices, proof.queries)):
         for op, (root, _size) in zip(query.input_openings, groups):
             if not verify_path(root, i0, op.leaf_bytes(), op.path):
@@ -561,10 +679,9 @@ def fri_verify(
             leaf = struct.pack("<QQ", op.v_lo, op.v_hi)
             if not verify_path(proof.layer_roots[k], int(pos[qi, k + 1]), leaf, op.path):
                 return False
-        in_vals = [v for op in query.input_openings for v in op.values]
         try:
-            g_lo, g_hi = g_eval(i0, half0, [int(v) for v in in_vals[0::2]],
-                                [int(v) for v in in_vals[1::2]])
+            g_lo, g_hi = g_eval(i0, half0, [int(v) for v in in_vals[qi, :, 0]],
+                                [int(v) for v in in_vals[qi, :, 1]])
         except DomainError:
             return False
 

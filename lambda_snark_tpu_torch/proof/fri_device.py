@@ -39,6 +39,7 @@ from ..core.errors import DomainError
 from ..ops import keccak, modarith
 from ..ops.ntt import NttPlan
 from ..ops.ntt_batched import ntt_forward_batched
+from ..utils.timing import stage
 from .fri import (
     FriParams,
     FriProof,
@@ -332,6 +333,7 @@ def fri_commit_layers(g: torch.Tensor, offset: int, omega: int, q: int,
     absorb its roots, then absorb the final polynomials and draw the query
     indices. Returns (committed [(values (S, n), forest)], finals,
     indices (S, Q) on the device)."""
+    stage("fri:dispatch")
     if q != P:
         raise DomainError("device FRI is implemented for the Goldilocks modulus")
     params.validate()
@@ -409,6 +411,7 @@ def fri_open(inputs, committed, finals, idx: torch.Tensor) -> List[FriProof]:
         parts += _take_siblings(forest, pos)
         depths.append(len(forest.levels) - 1)
     pulled = iter(_gather_pull(parts))
+    stage("fri:queries-pulled")
 
     def path_bytes(depth: int, rows: int) -> np.ndarray:  # (rows, Q, depth * 32)
         levels = [next(pulled) for _ in range(depth)]

@@ -480,7 +480,24 @@ def verify_r1cs_succinct(proof: SuccinctProofR1CS, public_inputs: Sequence[int],
         return out[0], out[1]
 
     return fri_verify(proof.fri, [(proof.input_root, 4)], g_eval, n0, offset, omega_n, q,
-                      params, tr)
+                      params, tr, deep=_deep_arrays(lam, evals, alpha, beta, q))
+
+
+def _deep_arrays(lam, evals, alpha, beta, q, n_polys: int = 4):
+    """The standard DEEP weight, evaluation and point arrays for
+    ``fri_verify(deep=...)``: the lambda ladder of the combined quotient,
+    one column per committed polynomial."""
+    wa = np.empty(n_polys, dtype=np.uint64)
+    wb = np.empty(n_polys, dtype=np.uint64)
+    lam_pow = 1
+    for k in range(n_polys):
+        lam2 = lam_pow * lam % q
+        wa[k], wb[k] = lam_pow, lam2
+        lam_pow = lam2 * lam % q
+    ea = np.array([evals[k] % q for k in range(n_polys)], dtype=np.uint64)
+    eb = np.array([evals[n_polys + k] % q for k in range(n_polys)], dtype=np.uint64)
+    return (wa, wb, ea, eb, np.full(n_polys, alpha % q, dtype=np.uint64),
+            np.full(n_polys, beta % q, dtype=np.uint64))
 
 
 # --- zero-knowledge view and its simulator -------------------------------------------

@@ -51,6 +51,7 @@ from ..ops import modarith
 from ..r1cs.r1cs import R1CS
 from ..transcript.challenge import derive_dual
 from ..utils.chacha import ChaCha20Rng
+from ..utils.timing import stage
 from . import fri_device
 from .fri import FriParams, coset_offset
 from .succinct import (
@@ -156,16 +157,22 @@ def _back_end(r1cs: R1CS, witnesses, d: Dispatched, first: int, geo: _Geometry
     its proofs assembled from one pull of the query openings."""
     q, params = geo.q, geo.params
     commitments, forest = finish_quotient_lde(d, first)
+    stage("frontend:lde-pulled")
     chals, alphas, betas = _derive_batch_challenges(r1cs, witnesses, commitments, forest.roots,
                                                     q)
+    stage("frontend:challenges")
     evals = eval_device(d.polys, alphas, betas)
+    stage("frontend:evals-pulled")
     trs, lams = _seed_batch_transcripts(q, geo.m, geo.mask_len, params, geo.d_bound,
                                         forest.roots, alphas, betas, evals)
+    stage("prove:transcripts-seeded")
     g = fri_device.deep_combine_device(d.lde, alphas, betas, lams, evals, geo.offset,
                                        geo.omega_n)
+    stage("prove:deep-dispatched")
     committed, finals, idx = fri_device.fri_commit_layers(g, geo.offset, geo.omega_n, q,
                                                           params, trs)
     fri_proofs = fri_device.fri_open([(d.lde, forest)], committed, finals, idx)
+    stage("prove:fri-done")
     return [
         SuccinctProofR1CS(
             commitments[i], forest.roots[i], *chals[i], *(int(v) for v in evals[i]),
@@ -183,8 +190,10 @@ def _prove_chunks(r1cs: R1CS, witnesses, ctx: LweContext, seeds, params: FriPara
     unchunked prover), one after another."""
     geo = _Geometry(r1cs, params, 0 if masks is None else masks.shape[2])
     proofs: List[SuccinctProofR1CS] = []
+    stage("prove:start")
     for start in range(0, len(witnesses), chunk):
         sl = slice(start, min(start + chunk, len(witnesses)))
+        stage("frontend:lde-dispatch")
         d = quotient_lde_dispatch(*_embed_and_eval(r1cs, witnesses[sl], dev), geo.n0,
                                   geo.offset, ctx, list(seeds[sl]),
                                   None if masks is None else masks[:, sl])

@@ -738,5 +738,24 @@ def verify_r1cs_witness(proof: WitnessProofR1CS, public_inputs: Sequence[int], r
             out.append((acc + weights[-1] * pow(x, sh_p, q) % q * vals[p_idx]) % q)
         return out[0], out[1]
 
+    def g_eval_batch(idx_arr, half, in_lo, in_hi):
+        # g_eval over every query at once (fri_verify's native path): one
+        # batch inversion of all the denominators, with g_eval's
+        # DomainError on a zero one
+        w_half = pow(omega_n, half, q)
+        xs = [offset * pow(omega_n, int(i), q) % q for i in idx_arr]
+        xs += [x * w_half % q for x in xs]
+        n_pts = len(distinct_pts)
+        invs = batch_inverse([(x - pt) % q for x in xs for pt in distinct_pts], q)
+        rows = np.concatenate([in_lo, in_hi]).tolist()
+        out = np.empty(len(xs), dtype=np.uint64)
+        for j, (x, vals) in enumerate(zip(xs, rows)):
+            inv = dict(zip(distinct_pts, invs[j * n_pts:(j + 1) * n_pts]))
+            acc = 0
+            for w, (k, pt, v) in zip(weights, terms):
+                acc = (acc + w * ((vals[k] - v) % q) % q * inv[pt]) % q
+            out[j] = (acc + weights[-1] * pow(x, sh_p, q) % q * vals[p_idx]) % q
+        return out[:len(idx_arr)], out[len(idx_arr):]
+
     return fri_verify(proof.fri, proof.input_groups(), g_eval, n0, offset, omega_n, q, params,
-                      tr)
+                      tr, g_eval_batch=g_eval_batch if q == P else None)

@@ -33,7 +33,9 @@ def _port_modules():
 
 
 def test_every_module_imports_without_jax():
-    mods = _port_modules()
+    # ``__main__`` runs the command line when imported: its import is
+    # test_torch_cli.py's ``python -m lambda_snark_tpu_torch info``
+    mods = [m for m in _port_modules() if not m.endswith(".__main__")]
     assert len(mods) >= 25
     code = (
         "import sys, importlib\n"
@@ -97,14 +99,51 @@ def test_host_golden_path_is_walked_by_the_import_rule(name):
     assert "device" not in params
 
 
+CLI_ENTRIES = ["cli_succinct", "cli_witness_bind", "cli_prove_stream", "cli_fuzz"]
+
+
+def _cli_argv(entry: str, tmp_path) -> list:
+    """A command line of the port's CLI whose library call takes ``device``,
+    on a 4-gate Goldilocks circuit written to ``tmp_path``."""
+    import json
+
+    gl = port.NTT_MODULUS
+    r1cs = port.multiplication_gates_circuit(4, gl)
+    witness = port.multiplication_gates_witness(4, gl)
+    data = {"m": r1cs.m, "n": r1cs.n, "l": r1cs.l, "modulus": gl}
+    for side, mat in (("a", r1cs.a), ("b", r1cs.b), ("c", r1cs.c)):
+        data[side] = [{"row": i, "col": j, "value": v} for i, j, v in mat.coo()]
+    (tmp_path / "c.json").write_text(json.dumps(data))
+    (tmp_path / "w.json").write_text(json.dumps([witness]))
+    (tmp_path / "ws.json").write_text(json.dumps([witness]))
+    files = ["--circuit", str(tmp_path / "c.json")]
+    if entry == "cli_fuzz":
+        return ["fuzz", "--iterations", "1"]
+    if entry == "cli_prove_stream":
+        return ["prove-stream", *files, "--witnesses", str(tmp_path / "ws.json")]
+    flag = "--succinct" if entry == "cli_succinct" else "--witness-bind"
+    (tmp_path / "w.json").write_text(json.dumps(witness))
+    return ["prove", *files, "--witness", str(tmp_path / "w.json"), flag,
+            "--out", str(tmp_path / "p.bin")]
+
+
 @pytest.mark.parametrize("entry", ["resolve", "commit_context", "prove", "succinct_batch",
                                    "succinct", "succinct_zk", "succinct_stream", "aggregate",
                                    "succinct_host_route", "witness", "witness_batch",
-                                   "witness_stream", "witness_host_route"])
-def test_entry_points_default_to_cuda(entry):
+                                   "witness_stream", "witness_host_route", "device_timer",
+                                   *CLI_ENTRIES])
+def test_entry_points_default_to_cuda(entry, tmp_path):
     _no_card()
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        if entry == "resolve":
+        if entry in CLI_ENTRIES:
+            from lambda_snark_tpu_torch import cli
+
+            cli.main(_cli_argv(entry, tmp_path))
+        elif entry == "device_timer":
+            from lambda_snark_tpu_torch.utils.timing import DeviceTimer
+
+            DeviceTimer(lambda x: x)
+        elif entry == "resolve":
             resolve()
         elif entry == "commit_context":
             DeviceCommitContext.from_host(_ctx())
@@ -161,8 +200,37 @@ def test_slice_modules_are_walked_by_the_import_rule(name):
     assert ("device" in params) == (name in DEVICE_MODULES)
 
 
+A6_MODULES = ["cli", "__main__", "native_bridge", "lean", "lean.export", "lean.params_io",
+              "lean.certificates", "utils.timing", "utils.fuzz", "utils.dudect"]
+
+
+@pytest.mark.parametrize("name", A6_MODULES)
+def test_command_line_modules_are_walked_by_the_import_rule(name):
+    """The command line and its auxiliary modules are among the modules
+    that ``test_every_module_imports_without_jax`` imports (``__main__``
+    through ``python -m``) and whose sources ``test_no_source_names_jax``
+    reads."""
+    assert f"lambda_snark_tpu_torch.{name}" in _port_modules()
+
+
+def test_every_jax_export_is_exported():
+    """Every name in the JAX package's ``__all__`` is in the port's, and
+    every name the port lists exists."""
+    jax_init = os.path.join(REPO, "lambda_snark_tpu", "__init__.py")
+    with open(jax_init) as f:
+        tree = ast.parse(f.read())
+    jax_all = next(node.value for node in tree.body if isinstance(node, ast.Assign)
+                   and node.targets[0].id == "__all__")
+    names = [ast.literal_eval(e) for e in jax_all.elts]
+    assert len(names) >= 60
+    assert set(names) <= set(port.__all__)
+    assert all(hasattr(port, n) for n in port.__all__)
+    assert port.__version__ == "0.8.0"
+    assert port.Challenge.__module__ == "lambda_snark_tpu_torch.transcript.challenge"
+
+
 @pytest.mark.parametrize("kind", range(1, 10))
-def test_deserialize_any_refuses_only_kind_9(kind):
+def test_deserialize_any_decodes_every_kind(kind):
     """Kinds 1 to 9 all decode: a body of zeros fails as malformed, and
     never as a kind the port has not ported."""
     blob = b"LSNKTPU1" + bytes([kind]) + bytes(64)
