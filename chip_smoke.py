@@ -146,11 +146,29 @@ Phases, each printing one flushed line with the seconds since start:
     of its own names the card and imports neither ``jax`` nor
     ``lambda_snark_tpu``; then kernels K, T, Q and R at every shape the
     command line launched them at, as in 18;
+26. the multi-device layer (``parallel/``) at m = n = 4096, k = 2, B = 256
+    on phase 16's first batch and key: (a) a world of one under NCCL (this
+    process): ``ShardedProver`` on a (1, 1) mesh equals
+    ``prove_stage_batch`` (kernels Q and R) in Q, A, B, C, the commitment
+    and the flags, the first 8 commitments are recomputed on the host from
+    the returned (s, e), one run launches kernel T's row entry (at most
+    20 times) and neither Q nor R, and its step is timed beside
+    ``prove_stage_batch`` (CUDA events, median of 20); (c)
+    ``ShardedProofService`` on that mesh over phase 16's 868 witnesses:
+    every proof through ``deserialize_any`` and ``verify_r1cs``, the first
+    256 equal ``prove_r1cs_stream``'s, a ``ProofStore`` run cut after 300
+    and resumed serves those bytes, proofs/s; (b) four ranks that share the
+    card over gloo (``spawn_local``), meshes (2, 2) and (1, 4): outputs
+    equal (a)'s, each rank's launches and step times, and no rank imports
+    jax; (d) ``entry.dryrun_multichip(4, backend="gloo")`` on the card,
+    legs (a)-(f); (e) kernel T at every row shape (a) and (b) launched, as
+    in 18;
 
 then the JSON lines: kind 7 at m = 2^13 (proofs/s, breakdown, idle share),
 kind 7 at m = 2^14, the streams, ZK kind 7, the pipelined prover, the
 kind-7 stream, the host path, kind 8 (one line per shape), the host routes,
-kind 9, the command line, and the ``kernels`` line: for each kernel
+kind 9, the command line, the multi-device layer (per-leg seconds, step
+times, launches, the service's proofs/s), and the ``kernels`` line: for each kernel
 on each path its time, its plain twin's time, its bound and its launches in
 that path's run, counted per C entry (the four-step NTT's entry launches
 two kernels, one per pass) and, for kernels K and T on the m = 2^14 kind-7
@@ -301,18 +319,23 @@ def phase(msg: str) -> None:
     print(f"[{time.time() - T0:7.1f}s] {msg}", flush=True)
 
 
-def cuda_ms(torch, fn, reps: int) -> float:
-    """Mean device time of ``fn`` in ms over ``reps`` calls, after a warm-up."""
+def cuda_ms(torch, fn, reps: int, each: bool = False) -> float:
+    """Device time of ``fn`` in ms after a warm-up: the mean of ``reps``
+    calls between one pair of CUDA events, or with ``each`` the median of
+    ``reps`` calls, each between its own pair."""
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    times = []
+    for _ in range(reps if each else 1):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(1 if each else reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / (1 if each else reps))
+    return sorted(times)[len(times) // 2]
 
 
 def max_abs_err(np, modarith, got, want) -> float:
@@ -402,10 +425,12 @@ def ntt_hold(np, dev, rng, entry: str, shape, variant: str):
 
 
 def ntt_name(variant: str) -> str:
-    """A kernel-line name's suffix for a transform variant: its direction
-    and its tables (``forward_pre``)."""
-    direction, _mod, _q, *tables = variant.split()
-    return "_".join([direction] + tables)
+    """A kernel-line name's suffix for a transform variant: its direction,
+    its tables (``forward_pre``) and, off Goldilocks, its field
+    (``inverse_q45`` for the 44-bit field 2^44 - 16982015)."""
+    direction, _mod, q, *tables = variant.split()
+    field = {"18446744069414584321": [], "17592169062401": ["q45"]}.get(q, [f"mod{q}"])
+    return "_".join([direction] + tables + field)
 
 
 def forest_work(trees: int, groups: int, n: int):
@@ -1031,7 +1056,8 @@ def stream_phases(np, torch, lst, dev, rng, ctx, q):
     """Phases 16-17: ``prove_r1cs_stream`` (plain at m = n = 4096, ZK at
     m = 2048; batches of 256 and a partial tail) with deserialize_any,
     the verifiers and a ProofStore resume; then ``entry()``. Returns
-    (launches per path, the stream record)."""
+    (launches per path, the stream record, (circuit, witnesses, proofs) of
+    the plain stream, which phase 26 proves again)."""
     import shutil
 
     from lambda_snark_tpu_torch import kernels
@@ -1079,6 +1105,7 @@ def stream_phases(np, torch, lst, dev, rng, ctx, q):
               f"{nonzero(launches[label])}; {elapsed:.3f} s ({count / elapsed:.1f} proofs/s)")
         if zk:
             continue
+        plain = (r1cs, ws, proofs)
         root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "stream_store")
         shutil.rmtree(root, ignore_errors=True)
         store = lst.ProofStore(root)
@@ -1115,7 +1142,7 @@ def stream_phases(np, torch, lst, dev, rng, ctx, q):
         raise RuntimeError("entry(): the card's prove stage differs from the CPU's")
     phase(f"phase 17 entry(): prove stage m=16 n=32 B=2 equals the CPU run; launches "
           f"{nonzero(launches['entry'])}")
-    return launches, record
+    return launches, record, plain
 
 
 def kind7_witnesses(np, lst, dev, rng, count: int, m: int) -> np.ndarray:
@@ -1754,7 +1781,8 @@ def hold_path_shapes(np, torch, lst, dev, rng, hold, shapes, held, tag, ctx, num
     path's run (``kernels.LAUNCHES``) against their twins, each shape held
     once in the script (``held`` keeps the records); returns ``kernels``
     line entries with the run's launches at each shape, and fails unless
-    every launch of those entries is listed."""
+    every launch of those entries is listed. ``ctx`` is the path's ring
+    context, or a function of the ring degree n that gives it."""
     from lambda_snark_tpu_torch.ops import modarith
     from lambda_snark_tpu_torch.ops.quotient import QuotientPlan, quotient, quotient_plain
     from lambda_snark_tpu_torch.ops.ring_commit import ring_commit, ring_commit_plain
@@ -1796,15 +1824,16 @@ def hold_path_shapes(np, torch, lst, dev, rng, hold, shapes, held, tag, ctx, num
                                  quotient_work(rows, m, "goldilocks"), plain_reps=1)
             else:  # ring_commit_goldilocks: e (rows, n), a message of n words
                 rows, n = shape
-                ring = device_commit_context(ctx, dev).ring
-                s_draws = torch.from_numpy(rng.integers(-39, 40, size=(ctx.k, rows, n),
+                ring_ctx = ctx(n) if callable(ctx) else ctx
+                ring = device_commit_context(ring_ctx, dev).ring
+                s_draws = torch.from_numpy(rng.integers(-39, 40, size=(ring_ctx.k, rows, n),
                                                         dtype=np.int32)).to(dev)
                 e_draws = torch.from_numpy(rng.integers(-39, 40, size=shape,
                                                         dtype=np.int32)).to(dev)
                 held[key] = hold(label, lambda *v: ring_commit(ring, *v),
                                  lambda *v: ring_commit_plain(ring, *v),
                                  (s_draws, e_draws, words(shape)),
-                                 ring_work(rows, n, ctx.k, n), plain_reps=1)
+                                 ring_work(rows, n, ring_ctx.k, n), plain_reps=1)
         src_file, replaces = where[entry]
         name = f"{entry}_{tag}_{'x'.join(map(str, shape))}"
         if variant:
@@ -2159,6 +2188,262 @@ def cli_phase(np, torch, lst, dev, rng, hold, held, report, k7, k9, smi: str):
     return entries, record
 
 
+# the multi-device layer's phase (26): the sharded prove step in a world of
+# one under NCCL (26a) and in four ranks that share the card over gloo
+# (26b, meshes (2, 2) and (1, 4)), the sharded service over phase 16's
+# witnesses (26c), the dry run's legs on four ranks (26d), and kernel T's
+# row entry at every shape 26a and 26b launched (26e)
+SHARED_CARD = "4 ranks share one card; the collectives are staged through gloo"
+SHARDED_MESHES = ((2, 2), (1, 4))
+SHARDED_REPS = 20
+
+
+def sharded_context(lst):
+    """Phase 4's commitment context: ring n = 4096, k = 2, sigma = 3.19."""
+    q = lst.NTT_FRIENDLY_MODULUS
+    return lst.LweContext(lst.Params(lst.SecurityLevel.BITS128,
+                                     lst.Profile.ring_b(n=RING_N, k=RING_K, q=q, sigma=SIGMA)),
+                          context_seed=1)
+
+
+def sharded_rank(evals, seed: int) -> dict:
+    """One of 26b's ranks (all on the one card, over gloo): the sharded step
+    on each mesh of ``SHARDED_MESHES`` over the (3, B, m) evaluations; per
+    mesh, rank 0's outputs, this rank's launches of one ``run`` and its
+    median step time; and whether jax or the JAX package was imported."""
+    import torch
+    import torch.distributed as dist
+
+    import lambda_snark_tpu_torch as lst
+    from lambda_snark_tpu_torch import kernels
+    from lambda_snark_tpu_torch.ops.sampler import prng_key
+    from lambda_snark_tpu_torch.parallel.mesh import make_mesh
+    from lambda_snark_tpu_torch.parallel.pipeline_sharded import ShardedProver
+
+    ctx = sharded_context(lst)
+    out = {"foreign_modules": sorted(m for m in sys.modules if m.split(".")[0] in
+                                     ("jax", "jaxlib", "lambda_snark_tpu"))}
+    for shape in SHARDED_MESHES:
+        mesh = make_mesh(shape, device="cuda")
+        prover = ShardedProver(M_PLAIN, lst.NTT_FRIENDLY_MODULUS, ctx, mesh)
+        blocks = [prover.shard(e) for e in evals]
+        key = prng_key(seed & 0x7FFFFFFF)
+        prover.run(*evals, seed)  # warm-up: plans, kernel loads
+        torch.cuda.synchronize()
+        dist.barrier()
+        kernels.reset_launches()
+        res = prover.run(*evals, seed)
+        torch.cuda.synchronize()
+        launches, shapes = kernels.launches(), dict(kernels.LAUNCHES)
+        times = cuda_ms(torch, lambda: prover.step(*blocks, key), SHARDED_REPS, each=True)
+        out[shape] = dict(launches=launches, shapes=shapes, step_ms=times,
+                          outputs=[t.cpu() for t in res] if dist.get_rank() == 0 else None)
+    return out
+
+
+def multidevice_phase(np, torch, lst, dev, rng, hold, held, plain_stream, stream_rec,
+                      smi: str):
+    """Phase 26: the multi-device layer (``parallel/``) on the card. Returns
+    (``kernels`` line entries, the record)."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from lambda_snark_tpu_torch import kernels
+    from lambda_snark_tpu_torch.commit.lwe import _ring_combine
+    from lambda_snark_tpu_torch.entry import dryrun_multichip
+    from lambda_snark_tpu_torch.ops import modarith
+    from lambda_snark_tpu_torch.ops.sampler import prng_key, sample_signed
+    from lambda_snark_tpu_torch.parallel.mesh import make_mesh
+    from lambda_snark_tpu_torch.parallel.multihost import initialize_multihost, spawn_local
+    from lambda_snark_tpu_torch.parallel.pipeline_sharded import ShardedProver
+    from lambda_snark_tpu_torch.parallel.service import ShardedProofService
+    from lambda_snark_tpu_torch.pipeline import prove_stage_batch
+    from lambda_snark_tpu_torch.prover_batched import prove_plan, witness_words
+
+    q = lst.NTT_FRIENDLY_MODULUS
+    ctx = sharded_context(lst)
+    r1cs, ws, stream_proofs = plain_stream
+    record, entries = {"card": smi, "note": SHARED_CARD}, []
+    # phase 16's first batch and its key (batch 0 of prove_r1cs_stream)
+    seed0 = (SEED ^ 0x9E3779B97F4A7C15) & ((1 << 63) - 1)
+    key = prng_key(seed0 & 0x7FFFFFFF)
+    w = modarith.to_words(witness_words(ws[:BATCH], r1cs.n, q), dev)
+    evals = r1cs.constraint_evals_batch(w)
+
+    # --- 26a: a world of one under NCCL --------------------------------------------
+    t = time.time()
+    initialize_multihost(backend="nccl")
+    try:
+        mesh = make_mesh([1, 1], device="cuda")
+        prover = ShardedProver(M_PLAIN, q, ctx, mesh)
+        prover.run(*evals, seed0)  # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        out = prover.run(*evals, seed0)
+        torch.cuda.synchronize()
+        launches_a, shapes_a = kernels.launches(), dict(kernels.LAUNCHES)
+        pp = prove_plan(r1cs, ctx, dev)
+        want = prove_stage_batch(pp, *evals, key)
+        flat = [prover.coeff_layout_to_flat(x) for x in out[:5]]
+        if not (all(torch.equal(g, w_) for g, w_ in zip(flat, want[:5]))
+                and torch.equal(out[7], want[5]) and bool(out[7].all())):
+            raise RuntimeError("26a: the sharded step differs from prove_stage_batch")
+        s = prover.coeff_layout_to_flat(out[5][:, :CHECK_ROWS]).cpu().numpy().astype(np.int64)
+        e = prover.coeff_layout_to_flat(out[6][:CHECK_ROWS]).cpu().numpy().astype(np.int64)
+        host = _ring_combine(ctx, s.transpose(1, 0, 2), e, modarith.to_u64(flat[0][:CHECK_ROWS]))
+        if not np.array_equal(host, modarith.to_u64(flat[4][:CHECK_ROWS])):
+            raise RuntimeError("26a: a commitment differs from the host's recomputation")
+        if launches_a["ntt_rows"] < 1 or launches_a["ntt_rows"] > 20 or any(
+                launches_a[e_] for e_ in ("quotient_q45", "quotient_goldilocks",
+                                          "ring_commit_goldilocks")):
+            raise RuntimeError(f"26a: launches {nonzero(launches_a)}")
+        blocks = [prover.shard(x) for x in evals]
+        sharded = cuda_ms(torch, lambda: prover.step(*blocks, key), SHARDED_REPS, each=True)
+        single = cuda_ms(torch, lambda: prove_stage_batch(pp, *evals, key), SHARDED_REPS,
+                         each=True)
+        # where the step's time goes: its sampler call and its five sharded
+        # transforms (all_to_alls included) alone at the step's shapes, the
+        # rest (twists, products, sums, the validity count) by difference,
+        # and one profiled step
+        b_idx = torch.arange(BATCH, dtype=torch.int64, device=dev)
+        pos = torch.arange(M_PLAIN, dtype=torch.int64, device=dev)
+        x3, xk = torch.cat(blocks), torch.cat(blocks[:1] * RING_K)
+
+        def transforms():
+            prover.field.forward(prover.field.inverse(x3))
+            prover.field.inverse(blocks[0])
+            prover.ring.inverse(prover.ring.forward(xk))
+
+        stages = dict(
+            sampler=cuda_ms(torch, lambda: sample_signed(key, range(RING_K + 1), b_idx, pos,
+                                                         prover.cdf), SHARDED_REPS, each=True),
+            transforms=cuda_ms(torch, transforms, SHARDED_REPS, each=True))
+        stages["rest"] = sharded - stages["sampler"] - stages["transforms"]
+        trace = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                             "sharded_step_trace.json")
+        os.makedirs(os.path.dirname(trace), exist_ok=True)
+        wall, busy, top = device_busy(torch, lambda: prover.step(*blocks, key), trace)
+        idle = None if busy is None else 1.0 - busy / wall
+        record["26a"] = dict(step_ms=sharded, prove_stage_batch_ms=single, stages_ms=stages,
+                             profiled_wall_s=wall, device_busy_s=busy, device_idle_share=idle,
+                             top_kernels_ms=top, launches=nonzero(launches_a),
+                             seconds=time.time() - t)
+        phase(f"phase 26a ShardedProver mesh=(1x1) nccl m=n={M_PLAIN} B={BATCH}: Q, A, B, C, "
+              f"commitment and valid bit-equal to prove_stage_batch (kernels Q and R); first "
+              f"{CHECK_ROWS} commitments recomputed on the host from (s, e); launches "
+              f"{nonzero(launches_a)} (Q and R 0); step {sharded:.3f} ms against "
+              f"prove_stage_batch {single:.3f} ms (median of {SHARDED_REPS}, CUDA events; "
+              f"{smi})")
+        phase(f"phase 26a the step's parts (median of {SHARDED_REPS}, CUDA events): sampler "
+              f"{stages['sampler']:.3f} ms, five sharded transforms {stages['transforms']:.3f} "
+              f"ms, the rest {stages['rest']:.3f} ms; one profiled step {wall * 1e3:.3f} ms "
+              f"wall, device busy "
+              f"{'not measured' if busy is None else f'{busy * 1e3:.3f} ms, idle share {idle:.3f}'}"
+              f"; most device time: {[(k, round(v, 4)) for k, v in top]}")
+
+        # --- 26c: the service on 26a's mesh -----------------------------------------
+        t = time.time()
+        svc = ShardedProofService(r1cs, ctx, mesh, batch=BATCH, prover=prover)
+        t_run = time.time()
+        got = list(svc.prove_stream(ws, SEED))
+        elapsed = time.time() - t_run
+        if [i for i, _p in got] != list(range(len(ws))):
+            raise RuntimeError("26c: the service's indices are out of order")
+        for (i, p), w_i in zip(got, ws):
+            if not lst.verify_r1cs(lst.deserialize_any(p.to_bytes()), r1cs.public_inputs(w_i),
+                                   r1cs):
+                raise RuntimeError(f"26c: proof {i} does not verify after deserialize_any")
+        if [p.to_bytes() for _i, p in got[:BATCH]] != \
+                [p.to_bytes() for p in stream_proofs[:BATCH]]:
+            raise RuntimeError(f"26c: the first {BATCH} proofs differ from prove_r1cs_stream's")
+        root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "svc_store")
+        shutil.rmtree(root, ignore_errors=True)
+        resume = lambda: ShardedProofService(r1cs, ctx, mesh, store=lst.ProofStore(root),
+                                             batch=BATCH, prover=prover).prove_stream(ws, SEED)
+        cut = resume()
+        first = [next(cut)[1].to_bytes() for _ in range(STREAM_CUT)]
+        cut.close()
+        # the resumed run serves the stored proofs and proves the rest in
+        # batches that start at the cut (their seeds fold the new leading
+        # index, as in JAX); a third run serves every proof from the store
+        again = [p.to_bytes() for _i, p in resume()]
+        stored = [p.to_bytes() for _i, p in resume()]
+        if (first != [p.to_bytes() for _i, p in got[:STREAM_CUT]] or again[:STREAM_CUT] != first
+                or stored != again or len(lst.ProofStore(root).keys()) != len(ws)):
+            raise RuntimeError("26c: the resumed service disagrees")
+        for i in range(STREAM_CUT, len(ws)):
+            if not lst.verify_r1cs(lst.deserialize_any(again[i]), r1cs.public_inputs(ws[i]), r1cs):
+                raise RuntimeError(f"26c: resumed proof {i} does not verify")
+        record["26c"] = dict(proofs=len(ws), seconds=elapsed, proofs_per_s=len(ws) / elapsed,
+                             stream_proofs_per_s=stream_rec["proofs_per_s"])
+        phase(f"phase 26c ShardedProofService mesh=(1x1) batch={BATCH}: {len(ws)} proofs in "
+              f"order, each through deserialize_any and verify_r1cs; the first {BATCH} equal "
+              f"prove_r1cs_stream's; a run cut after {STREAM_CUT}, then a full run, serves "
+              f"those bytes from the store and proves the rest (verified), a third run serves "
+              f"all {len(ws)}; {elapsed:.3f} s ({len(ws) / elapsed:.1f} proofs/s; phase 16's "
+              f"stream {stream_rec['proofs_per_s']:.1f}; {smi}) [{time.time() - t:.0f}s]")
+    finally:
+        dist.destroy_process_group()
+
+    # --- 26b: four ranks on the one card over gloo -----------------------------------
+    t = time.time()
+    ranks = spawn_local(4, sharded_rank, ([x.cpu() for x in evals], seed0), backend="gloo",
+                        device="cuda")
+    record["26b"] = {}
+    for shape in SHARDED_MESHES:
+        got = ranks[0][shape]["outputs"]
+        if not (all(torch.equal(g.to(dev), w_) for g, w_ in zip(got, out))):
+            raise RuntimeError(f"26b: mesh {shape} differs from 26a")
+        for r, rank in enumerate(ranks):
+            n_rows = rank[shape]["launches"]["ntt_rows"]
+            if n_rows < 1 or n_rows > 20 or rank["foreign_modules"]:
+                raise RuntimeError(f"26b: rank {r} launched {n_rows} ntt_rows, imported "
+                                   f"{rank['foreign_modules']}")
+        ms = [rank[shape]["step_ms"] for rank in ranks]
+        tag = "x".join(map(str, shape))
+        record["26b"][tag] = dict(step_ms_rank0=ms[0], step_ms_max=max(ms),
+                                  launches=[nonzero(rank[shape]["launches"]) for rank in ranks])
+        phase(f"phase 26b ShardedProver mesh=({tag}) gloo, 4 ranks on {dev}: outputs bit-equal "
+              f"to 26a; each rank launched {[rk[shape]['launches']['ntt_rows'] for rk in ranks]} "
+              f"ntt_rows, imported neither jax nor lambda_snark_tpu; step {ms[0]:.3f} ms on "
+              f"rank 0, {max(ms):.3f} ms the slowest (median of {SHARDED_REPS}; {SHARED_CARD}; "
+              f"{smi})")
+    record["26b"]["seconds"] = time.time() - t
+
+    # --- 26d: the dry run on four ranks ----------------------------------------------
+    t = time.time()
+    dry = dryrun_multichip(4, device="cuda", backend="gloo")
+    run, by_shape = {}, {}
+    for counts in dry["launches"] + [dry["reference_launches"]]:
+        for e_, n_ in counts.items():
+            run[e_] = run.get(e_, 0) + n_
+    for (e_, _s, _v), n_ in dry["shapes"].items():
+        by_shape[e_] = by_shape.get(e_, 0) + n_
+    if nonzero(run) != by_shape:
+        raise RuntimeError(f"26d: launches by shape {by_shape} != the processes' {nonzero(run)}")
+    record["26d"] = dict(legs_s=dry["legs_s"], seconds=time.time() - t,
+                         launches=[nonzero(x) for x in dry["launches"]],
+                         reference_launches=nonzero(dry["reference_launches"]))
+    phase(f"phase 26d dryrun_multichip(4) gloo on one card: legs {sorted(dry['legs_s'])} "
+          f"passed in {time.time() - t:.0f}s ({SHARED_CARD}; {smi})")
+
+    # --- 26e: every kernel at every shape 26a, 26b and 26d launched ------------------
+    # (the dry run's kinds 7/8/9 commit over Goldilocks rings of degree m, k = 1)
+    entries += hold_path_shapes(np, torch, lst, dev, rng, hold, dry["shapes"], held,
+                                "dryrun_2x2", lambda n: kind7_context(lst, n), 26)
+    entries += hold_path_shapes(np, torch, lst, dev, rng, hold, shapes_a, held, "sharded_1x1",
+                                ctx, 26)
+    for shape in SHARDED_MESHES:
+        summed = {}
+        for rank in ranks:
+            for k_, n_ in rank[shape]["shapes"].items():
+                summed[k_] = summed.get(k_, 0) + n_
+        entries += hold_path_shapes(np, torch, lst, dev, rng, hold, summed, held,
+                                    f"sharded_{'x'.join(map(str, shape))}", ctx, 26)
+    return entries, record
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2435,7 +2720,7 @@ def main() -> int:
     entries += shaped
     phase(f"phase 15 kernels K and T held at each of the {len(k7_shapes)} (entry, shape, "
           f"direction) triples of the m={KIND7_LONG_M} run; every launch of theirs listed")
-    st, stream = stream_phases(np, torch, lst, dev, rng, ctx, q)
+    st, stream, plain_stream = stream_phases(np, torch, lst, dev, rng, ctx, q)
     for name, rep, src_file, replaces, launches in (
             ("quotient_long_kind7_2pow14", "quotient_long", "quotient.cu",
              "lambda_snark_tpu/ops/quotient_pallas.py:143; " + pallas_src,
@@ -2506,6 +2791,9 @@ def main() -> int:
     cli_entries, cli_record = cli_phase(np, torch, lst, dev, rng, hold, held, report, k7, k9_path,
                                         smi)
     entries += cli_entries
+    md_entries, multidevice = multidevice_phase(np, torch, lst, dev, rng, hold, held,
+                                                plain_stream, stream["stream"], smi)
+    entries += md_entries
     print(json.dumps({"kind7": kind7}), flush=True)
     print(json.dumps({"kind7_2pow14": kind7_long, "launches_kind7_2pow14": k7_long,
                       "shape_launches_kind7_2pow14": [
@@ -2526,6 +2814,7 @@ def main() -> int:
     print(json.dumps({"host_routes_s": host_routes}), flush=True)
     print(json.dumps({"kind9": kind9}), flush=True)
     print(json.dumps({"cli": cli_record}), flush=True)
+    print(json.dumps({"multidevice": multidevice}), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)

@@ -213,6 +213,53 @@ def test_command_line_modules_are_walked_by_the_import_rule(name):
     assert f"lambda_snark_tpu_torch.{name}" in _port_modules()
 
 
+PARALLEL_MODULES = ["parallel", "parallel.mesh", "parallel.multihost", "parallel.ntt_sharded",
+                    "parallel.pipeline_sharded", "parallel.service", "entry"]
+
+
+@pytest.mark.parametrize("name", PARALLEL_MODULES)
+def test_multidevice_modules_are_walked_by_the_import_rule(name):
+    """The multi-device layer's modules (and ``entry``, which holds
+    ``dryrun_multichip``) are among the modules that
+    ``test_every_module_imports_without_jax`` imports and whose sources
+    ``test_no_source_names_jax`` reads."""
+    assert f"lambda_snark_tpu_torch.{name}" in _port_modules()
+
+
+def test_a_spawned_rank_imports_no_jax():
+    """A rank started by ``spawn_local`` (from this process, which has
+    imported JAX) imports neither jax nor the JAX package."""
+    from lambda_snark_tpu_torch.parallel.multihost import spawn_local
+
+    import torch_parallel_ranks
+
+    assert spawn_local(1, torch_parallel_ranks.modules_rank, device="cpu") == [[]]
+
+
+@pytest.mark.parametrize("entry", ["make_mesh", "ring_mesh", "initialize_multihost",
+                                   "spawn_local", "default_backend", "dryrun_multichip"])
+def test_multidevice_entry_points_default_to_cuda(entry):
+    _no_card()
+    from lambda_snark_tpu_torch.entry import dryrun_multichip
+    from lambda_snark_tpu_torch.parallel import make_mesh, ring_mesh
+    from lambda_snark_tpu_torch.parallel import multihost
+
+    call = {"make_mesh": lambda: make_mesh([1, 1]), "ring_mesh": ring_mesh,
+            "initialize_multihost": multihost.initialize_multihost,
+            "spawn_local": lambda: multihost.spawn_local(1, print),
+            "default_backend": multihost.default_backend,
+            "dryrun_multichip": lambda: dryrun_multichip(2)}[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
+
+
+def test_nccl_takes_one_rank_per_card():
+    from lambda_snark_tpu_torch.parallel.multihost import spawn_local
+
+    with pytest.raises(RuntimeError, match="NCCL takes one rank per card.*Duplicate GPU"):
+        spawn_local(2, print, backend="nccl", device="cpu")
+
+
 def test_every_jax_export_is_exported():
     """Every name in the JAX package's ``__all__`` is in the port's, and
     every name the port lists exists."""
