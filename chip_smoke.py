@@ -10,7 +10,8 @@ Phases, each printing one flushed line with the seconds since start:
    (one ``nvcc`` per source, started together), each kernel function's
    registers and spills, and the SASS instruction mix of kernel T's
    ``dft_pass``, kernel K's forest kernel (G = 1 and 4, the kind-7 path's;
-   2, 5 and 6, kind 9's) and kernels Q and R at each cluster size; beside
+   2, 5 and 6, kind 9's), kernels Q and R at each cluster size and kernels
+   S and F; beside
    them, the native host library (``native_bridge``, ``g++`` on
    ``native/src``) where there is a C++ compiler: a failed build fails the
    script;
@@ -84,9 +85,11 @@ Phases, each printing one flushed line with the seconds since start:
     flipped ``q_alpha`` are rejected, kernels Q, R, T and K launched (the
     counts printed per batch), the median of five batches and the idle
     share of one profiled batch; then kernels
-    K, T, Q and R at every shape that run launched them at, against their
-    twins (each shape held once in the script);
-19. the chunk-pipelined prover (``pipeline_chunk=32``) at m = 2^13,
+    K, T, Q, R, S and F at every shape that run launched them at, against
+    their twins (each shape held once in the script);
+19. the chunk-pipelined prover (``pipeline_chunk=32``, the JAX package's
+    three phases: every front end, then every FRI chain, then every
+    bundle pulled) at m = 2^13,
     S = 64 and 128: bytes equal to the unchunked prover's on the card for
     every statement, every proof verifies, one front end per chunk; the
     median of three batches of each route, alternated, and the idle share
@@ -107,7 +110,7 @@ Phases, each printing one flushed line with the seconds since start:
     (2 at agg13, 8 at agg10) equals a ``device="cpu"`` run byte for byte,
     kernels Q, R, T and K launched (counts per batch printed), the median
     of five batches, proofs/s and bytes per statement, and the idle share of
-    one profiled batch; then kernels K, T, Q and R at every shape each run
+    one profiled batch; then kernels K, T, Q, R, S and F at every shape each run
     launched them at, as in 18;
 23. the host routes: kind 7 over the 44-bit field and the healthcare prime
     (plain and ZK), kind 7 at ring degree n < m (a zero-quotient circuit on
@@ -125,7 +128,7 @@ Phases, each printing one flushed line with the seconds since start:
     three staged proofs); ``prove_r1cs_witness_batch`` at S = 4 and the
     ``witness_bind`` stream at m = 2^10 (10 witnesses in batches of 4, a
     ``ProofStore`` resume): every proof verifies, the stream's bytes are one
-    batch's; then kernels K, T, Q and R at every shape each run launched
+    batch's; then kernels K, T, Q, R, S and F at every shape each run launched
     them at, as in 18;
 25. the command line (``cli.main`` in this process, the entry point of
     ``python -m lambda_snark_tpu_torch``), on circuit, witness and context
@@ -144,7 +147,7 @@ Phases, each printing one flushed line with the seconds since start:
     rates printed); ``fuzz --iterations 200`` on the card gives the CPU
     run's counts; ``python -m lambda_snark_tpu_torch info`` in a process
     of its own names the card and imports neither ``jax`` nor
-    ``lambda_snark_tpu``; then kernels K, T, Q and R at every shape the
+    ``lambda_snark_tpu``; then kernels K, T, Q, R, S and F at every shape the
     command line launched them at, as in 18;
 26. the multi-device layer (``parallel/``) at m = n = 4096, k = 2, B = 256
     on phase 16's first batch and key: (a) a world of one under NCCL (this
@@ -163,12 +166,28 @@ Phases, each printing one flushed line with the seconds since start:
     jax; (d) ``entry.dryrun_multichip(4, backend="gloo")`` on the card,
     legs (a)-(f); (e) kernel T at every row shape (a) and (b) launched, as
     in 18;
+27. the FRI chain (``proof.fri_device``, ``DEVICE_TRANSCRIPT``), which
+    every kind-7 and kind-8 phase above runs by default: kernel S (the
+    transcript sponge, ``csrc/fri.cu``) at S = 1, 16 and 128 for each
+    entry (a layer root, ``fri-final`` at final_len 64, a fold challenge,
+    30 query indices) against its twin and ``hashlib.sha3_256``; then k7a,
+    k7b, ZK k7a, agg13 (plain and ZK), agg10 and the pipelined prover at
+    S = 64 and 128 (chunks of 32) proved with the switch on and off in
+    turns: the bytes equal both ways, the chain's proofs verify and
+    tampered ones are rejected, per route the median of three batches, the
+    idle share of one profiled batch, the launches of kernels S, F, K and T
+    and the host synchronisations of one batch (PyTorch's sync debug mode
+    in ``warn``); kernels S and F (the fold) held at every shape each chain
+    run launched them at; and ``fri_chain_dispatch`` of a k7a batch under
+    ``torch.cuda.set_sync_debug_mode("error")``, whose
+    ``fri_chain_finish`` synchronises once;
 
 then the JSON lines: kind 7 at m = 2^13 (proofs/s, breakdown, idle share),
 kind 7 at m = 2^14, the streams, ZK kind 7, the pipelined prover, the
 kind-7 stream, the host path, kind 8 (one line per shape), the host routes,
 kind 9, the command line, the multi-device layer (per-leg seconds, step
-times, launches, the service's proofs/s), and the ``kernels`` line: for each kernel
+times, launches, the service's proofs/s), the FRI chain against the
+per-layer route per shape, and the ``kernels`` line: for each kernel
 on each path its time, its plain twin's time, its bound and its launches in
 that path's run, counted per C entry (the four-step NTT's entry launches
 two kernels, one per pass) and, for kernels K and T on the m = 2^14 kind-7
@@ -443,6 +462,64 @@ def forest_work(trees: int, groups: int, n: int):
 
 FOREST_ENTRIES = ("keccak_group_forest", "keccak_forest")
 KECCAK_SRC = "lambda_snark_tpu/ops/keccak_pallas.py:242"
+# kernels S and F (csrc/fri.cu): the counterparts of XLA device functions of
+# the JAX chain, not of Pallas kernels
+CHAIN_ENTRIES = ("transcript_absorb", "transcript_squeeze", "fri_fold")
+SPONGE_SRC = "lambda_snark_tpu/proof/fri_device.py:678 (_sha3_bytes_dev, DevTranscript :736)"
+FOLD_SRC = "lambda_snark_tpu/proof/fri_device.py:203 (_fold_fn; the fold of _chain_fn :782)"
+
+
+def sponge_blocks(label_len: int, words: int) -> int:
+    """SHA3-256 rate blocks of state || label || words LE64 words."""
+    return (32 + label_len + 8 * words) // 136 + 1
+
+
+def sponge_work(entry: str, shape, variant: str):
+    """Bytes and ops of one kernel S launch at a recorded (entry, shape,
+    variant): every state read and written once, the payload read and the
+    outputs written; one Keccak-f per rate block of each statement."""
+    s, width = shape
+    label_len = len(variant.split()[0])
+    if entry == "transcript_absorb":
+        words = width + int(variant.endswith(" head"))
+        return s * (64 + 8 * width), s * sponge_blocks(label_len, words) * OPS_KECCAK
+    return s * (64 + 8 * width), s * width * sponge_blocks(label_len, 1) * OPS_KECCAK
+
+
+def fold_work(rows: int, n: int):
+    """Bytes and ops of one kernel F launch over (rows, n) words: the
+    codewords, the n/2-word table and the challenges read once, the
+    (rows, n/2) output written; three products and three sums a word."""
+    half = rows * (n // 2)
+    return (rows * n + half + n // 2 + rows) * 8, half * (3 * OPS_MUL["goldilocks"] + 3 * OPS_ADD)
+
+
+def chain_hold(np, dev, rng, entry: str, shape, variant: str):
+    """(kernel, twin, inputs, work) of kernel S or F at one recorded
+    (entry, shape, variant)."""
+    from lambda_snark_tpu_torch.ops import fri_fold, keccak, modarith
+
+    gl = modarith.GOLDILOCKS
+    words = lambda shp, high=1 << 64: modarith.to_words(
+        rng.integers(0, high, size=shp, dtype=np.uint64, endpoint=False), dev)
+    if entry == "fri_fold":
+        rows, n = shape
+        return (fri_fold.fold, fri_fold.fold_plain,
+                (words(shape, gl), words((n // 2,), gl), words((rows,), gl)),
+                fold_work(rows, n))
+    s, width = shape
+    label, *rest = variant.split()
+    label = label.encode()
+    state = words((s, 4))
+    if entry == "transcript_absorb":
+        head = width if rest == ["head"] else None
+        return (lambda st, pl: keccak.transcript_absorb(st, label, pl, head),
+                lambda st, pl: keccak.transcript_absorb_plain(st, label, pl, head),
+                (state, words(shape)), sponge_work(entry, shape, variant))
+    mask = None if rest == ["field"] else int(rest[1])
+    return (lambda st: keccak.transcript_squeeze(st, label, 7, width, mask),
+            lambda st: keccak.transcript_squeeze_plain(st, label, 7, width, mask),
+            (state,), sponge_work(entry, shape, variant))
 
 
 def forest_inputs(np, modarith, dev, rng, entry: str, shape):
@@ -767,18 +844,18 @@ def kind7_phases(np, torch, lst, dev, rng, hold, report):
         parts["challenges_and_transcripts_s"] = time.time() - t
         t = time.time()
         g = fri_device.deep_combine_device(lde, alphas, betas, lams, evals, offset, omega_n)
-        committed, finals, idx = fri_device.fri_commit_layers(g, offset, omega_n, gl, params,
-                                                              trs)
+        bundle, layout = fri_device.fri_chain_dispatch(g, [(lde, forest)], offset, omega_n, gl,
+                                                       params, trs)
         torch.cuda.synchronize()
         parts["deep_and_fri_on_card_s"] = time.time() - t
         t = time.time()
-        fri_proofs = fri_device.fri_open([(lde, forest)], committed, finals, idx)
+        fri_proofs = fri_device.fri_chain_finish(bundle, layout)
         again = [SuccinctProofR1CS(
             comms[i], forest.roots[i], *chals[i], *(int(v) for v in evals[i]),
             fri=fri_proofs[i], m=m, mask_len=0, log_blowup=params.log_blowup,
             num_queries=params.num_queries, final_len=params.final_len, modulus=gl)
             for i in range(s)]
-        parts["query_assembly_s"] = time.time() - t
+        parts["fri_pull_and_assembly_s"] = time.time() - t
         if [p.to_bytes() for p in again] != [p.to_bytes() for p in proofs]:
             raise RuntimeError("kind 7: the staged run differs from the entry point's proofs")
         return parts
@@ -1410,11 +1487,28 @@ def host_golden_phase(np, lst):
     return times
 
 
+def reject_tampered_aggregate(proof, r1cs, label: str) -> None:
+    """A kind-8 aggregate with a flipped byte in a FRI path, and one with a
+    flipped evaluation of its middle statement, must not verify."""
+    import dataclasses
+
+    from lambda_snark_tpu_torch.proof.aggregate import verify_r1cs_succinct_aggregate
+
+    s = len(proof.statements)
+    st = proof.statements[s // 2]
+    bad_st = dataclasses.replace(st, evals=(st.evals[0] ^ 1,) + st.evals[1:])
+    tampered = [
+        tamper_fri_path(proof),
+        dataclasses.replace(proof, statements=proof.statements[: s // 2] + (bad_st,)
+                            + proof.statements[s // 2 + 1:]),
+    ]
+    if any(verify_r1cs_succinct_aggregate(p, [[1]] * s, r1cs) for p in tampered):
+        raise RuntimeError(f"{label}: a tampered aggregate verified")
+
+
 def kind8_phase(np, torch, lst, dev, rng, label: str, m: int, s: int, zk: bool, check: int):
     """Phase 22: ``prove_r1cs_succinct_aggregate`` at m, S on the card.
     Returns (the run's launches, its launches per shape, its record)."""
-    import dataclasses
-
     from lambda_snark_tpu_torch import kernels
     from lambda_snark_tpu_torch.proof.aggregate import verify_r1cs_succinct_aggregate
 
@@ -1444,21 +1538,7 @@ def kind8_phase(np, torch, lst, dev, rng, label: str, m: int, s: int, zk: bool, 
     if not verify_r1cs_succinct_aggregate(lst.deserialize_any(blob), publics, r1cs):
         raise RuntimeError(f"kind 8 {label}: the aggregate does not verify")
     verify_s = time.time() - t
-    q0 = proof.fri.queries[0]
-    field_name = "layer_openings" if q0.layer_openings else "input_openings"
-    ops = getattr(q0, field_name)
-    bad_op = dataclasses.replace(ops[0], path=bytes([ops[0].path[0] ^ 1]) + ops[0].path[1:])
-    bad_q = dataclasses.replace(q0, **{field_name: (bad_op,) + ops[1:]})
-    st = proof.statements[s // 2]
-    bad_st = dataclasses.replace(st, evals=(st.evals[0] ^ 1,) + st.evals[1:])
-    tampered = [
-        dataclasses.replace(proof, fri=dataclasses.replace(
-            proof.fri, queries=(bad_q,) + proof.fri.queries[1:])),
-        dataclasses.replace(proof, statements=proof.statements[: s // 2] + (bad_st,)
-                            + proof.statements[s // 2 + 1:]),
-    ]
-    if any(verify_r1cs_succinct_aggregate(p, publics, r1cs) for p in tampered):
-        raise RuntimeError(f"kind 8 {label}: a tampered aggregate verified")
+    reject_tampered_aggregate(proof, r1cs, f"kind 8 {label}")
     for _ in range(KIND7_REPS - 1):
         torch.cuda.synchronize()
         t = time.time()
@@ -1777,7 +1857,7 @@ def host_routes_phase(np, lst):
 
 
 def hold_path_shapes(np, torch, lst, dev, rng, hold, shapes, held, tag, ctx, num) -> list:
-    """Kernels K, T, Q and R at every (entry, input shape, variant) of a
+    """Kernels K, T, Q, R, S and F at every (entry, input shape, variant) of a
     path's run (``kernels.LAUNCHES``) against their twins, each shape held
     once in the script (``held`` keeps the records); returns ``kernels``
     line entries with the run's launches at each shape, and fails unless
@@ -1798,7 +1878,10 @@ def hold_path_shapes(np, torch, lst, dev, rng, hold, shapes, held, tag, ctx, num
              "ntt_four_step": ("ntt.cu", "lambda_snark_tpu/ops/ntt_pallas.py:126; "
                                          "lambda_snark_tpu/ops/ntt_mxu.py:631"),
              "keccak_group_forest": ("keccak.cu", KECCAK_SRC),
-             "keccak_forest": ("keccak.cu", KECCAK_SRC)}
+             "keccak_forest": ("keccak.cu", KECCAK_SRC),
+             "transcript_absorb": ("fri.cu", SPONGE_SRC),
+             "transcript_squeeze": ("fri.cu", SPONGE_SRC),
+             "fri_fold": ("fri.cu", FOLD_SRC)}
     words = lambda shape, q=gl: modarith.to_words(rng.integers(0, q, size=shape,
                                                                dtype=np.uint64), dev)
     out = []
@@ -1814,6 +1897,9 @@ def hold_path_shapes(np, torch, lst, dev, rng, hold, shapes, held, tag, ctx, num
             elif entry.startswith("ntt_"):
                 fn, plain, x, work = ntt_hold(np, dev, rng, entry, shape, variant)
                 held[key] = hold(label, fn, plain, (x,), work, plain_reps=1)
+            elif entry in CHAIN_ENTRIES:
+                fn, plain, args, work = chain_hold(np, dev, rng, entry, shape, variant)
+                held[key] = hold(label, fn, plain, args, work, plain_reps=1)
             elif entry == "quotient_goldilocks":
                 rows, m = shape
                 plan = QuotientPlan.create(m, gl, field_psi_for(m, gl), device=dev)
@@ -1838,7 +1924,7 @@ def hold_path_shapes(np, torch, lst, dev, rng, hold, shapes, held, tag, ctx, num
         name = f"{entry}_{tag}_{'x'.join(map(str, shape))}"
         if variant:
             name += f"_{ntt_name(variant)}" if entry.startswith("ntt_") else \
-                f"_{variant.replace(' ', '')}"
+                f"_{variant.replace(' ', '_' if entry in CHAIN_ENTRIES else '')}"
         out.append(dict(name=name, route="cuda", source=f"{src}/{src_file}", replaces=replaces,
                         launches=launches, **held[key], library_ms=None))
     for entry in where:
@@ -1846,8 +1932,8 @@ def hold_path_shapes(np, torch, lst, dev, rng, hold, shapes, held, tag, ctx, num
         run = sum(n for (e, _s, _v), n in shapes.items() if e == entry)
         if listed != run:
             raise RuntimeError(f"{tag}: {entry} launched {run} times, {listed} listed")
-    phase(f"phase {num} {tag}: kernels K, T, Q and R held at each of the {len(shapes)} (entry, shape, "
-          f"variant) triples of the run; every launch of theirs listed")
+    phase(f"phase {num} {tag}: kernels K, T, Q, R, S and F held at each of the {len(shapes)} "
+          f"(entry, shape, variant) triples of the run; every launch of theirs listed")
     return out
 
 
@@ -2444,6 +2530,223 @@ def multidevice_phase(np, torch, lst, dev, rng, hold, held, plain_stream, stream
     return entries, record
 
 
+# phase 27: the FRI chain (proof.fri_device.DEVICE_TRANSCRIPT, kernels S and
+# F) against the per-layer route on every kind-7 and kind-8 shape of the
+# script: (label, kind, m, statements, zk, pipeline_chunk). With the switch
+# off the pipelined prover proves unchunked, as the JAX package's gate does.
+CHAIN_SHAPES = (("k7a", 7, KIND7_M, KIND7_S, False, None),
+                ("k7b", 7, KIND7_LONG_M, KIND7_S, False, None),
+                ("k7a_zk", 7, KIND7_M, KIND7_S, True, None),
+                ("agg13", 8, 1 << 13, 16, False, None),
+                ("agg13_zk", 8, 1 << 13, 16, True, None),
+                ("agg10", 8, 1 << 10, 128, False, None),
+                ("pipelined_s64", 7, KIND7_M, 64, False, PIPE_CHUNK),
+                ("pipelined_s128", 7, KIND7_M, 128, False, PIPE_CHUNK))
+CHAIN_ORDER = (True, False, False, True, True, False)  # the switch, alternated
+SPONGE_STATEMENTS = (1, 16, 128)
+# kernel S's entries at the chain's default FriParams: a layer root, the
+# final polynomial (final_len 64 and its length word), a fold challenge and
+# the 30 query indices of an n0 = 2^16 codeword
+SPONGE_CALLS = (("transcript_absorb", 4, "fri-layer-root"),
+                ("transcript_absorb", 64, "fri-final head"),
+                ("transcript_squeeze", 1, "fri-fold field"),
+                ("transcript_squeeze", FRI_QUERIES, f"fri-query mask {(1 << 15) - 1}"))
+
+
+def count_syncs(torch, fn):
+    """(fn(), the host synchronisations PyTorch's sync debug mode reports
+    while it runs)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def kernel_groups(launches: dict) -> dict:
+    """Launches of kernels S, F, K and T in a run, from its per-entry counts."""
+    return {"S": launches["transcript_absorb"] + launches["transcript_squeeze"],
+            "F": launches["fri_fold"],
+            "K": sum(launches[e] for e in FOREST_ENTRIES + KECCAK_PER_LEVEL),
+            "T": launches["ntt_rows"] + launches["ntt_four_step"]}
+
+
+def sponge_phase(np, torch, dev, rng, hold, held) -> None:
+    """Phase 27 (a): kernel S at S = 1, 16 and 128 statements for each of
+    its entries against its twin (``hold``) and hashlib."""
+    import hashlib
+    import struct
+
+    from lambda_snark_tpu_torch.ops import modarith
+
+    gl = modarith.GOLDILOCKS
+    for s in SPONGE_STATEMENTS:
+        for entry, width, variant in SPONGE_CALLS:
+            key = (entry, (s, width), variant)
+            fn, plain, args, work = chain_hold(np, dev, rng, entry, (s, width), variant)
+            if key not in held:
+                held[key] = hold(f"phase 27 kernel S {entry} S={s} {variant}", fn, plain, args,
+                                 work, plain_reps=1)
+            got = fn(*args)
+            states = modarith.to_u64(args[0])
+            label = variant.split()[0].encode()
+            for i in range(s):
+                st = states[i].tobytes()
+                if entry == "transcript_absorb":
+                    payload = modarith.to_u64(args[1][i]).tobytes()
+                    head = struct.pack("<Q", width) if variant.endswith("head") else b""
+                    want = [hashlib.sha3_256(st + label + head + payload).digest()]
+                    have = [modarith.to_u64(got[i]).tobytes()]
+                else:
+                    want, have = [], []
+                    for k in range(width):
+                        st = hashlib.sha3_256(st + label + struct.pack("<Q", 7 + k)).digest()
+                        first = int.from_bytes(st[:8], "little")
+                        want.append(first % gl if variant.endswith("field")
+                                    else first & int(variant.split()[-1]))
+                    have = modarith.to_u64(got[1][i]).tolist()
+                    want.append(st)
+                    have.append(modarith.to_u64(got[0][i]).tobytes())
+                if have != want:
+                    raise RuntimeError(f"kernel S {entry} {variant}: row {i} of S={s} "
+                                       "disagrees with hashlib.sha3_256")
+    phase(f"phase 27 kernel S: every entry at S = {SPONGE_STATEMENTS} bit-exact against its "
+          "twin and hashlib.sha3_256")
+
+
+def chain_phase(np, torch, lst, dev, rng, hold, held, smi: str):
+    """Phase 27: kernel S against hashlib; then every kind-7 and kind-8
+    shape proved with ``DEVICE_TRANSCRIPT`` on (the chain) and off (the
+    per-layer route) in turns: the bytes equal, the chain's proofs verify
+    and tampered ones are rejected, per route the median of three batches,
+    the idle share of one profiled batch, the launches of kernels S, F, K
+    and T and the host synchronisations of one batch; fri_chain_dispatch
+    under ``torch.cuda.set_sync_debug_mode("error")`` with one pull in
+    fri_chain_finish; kernels S and F held at every shape the chain runs
+    launched. Returns (``kernels`` line entries, the record)."""
+    from lambda_snark_tpu_torch import kernels
+    from lambda_snark_tpu_torch.proof import fri_device
+    from lambda_snark_tpu_torch.proof import succinct_batch as sb
+    from lambda_snark_tpu_torch.proof.aggregate import verify_r1cs_succinct_aggregate
+    from lambda_snark_tpu_torch.proof.fri import FriParams
+    from lambda_snark_tpu_torch.proof.succinct import verify_r1cs_succinct
+    from lambda_snark_tpu_torch.proof.succinct_device import eval_device, quotient_lde_device
+
+    sponge_phase(np, torch, dev, rng, hold, held)
+    record, entries = {"card": smi}, []
+    trace = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chain_trace.json")
+    try:
+        for label, kind, m, s, zk, chunk in CHAIN_SHAPES:
+            ctx, r1cs = kind7_context(lst, m), kind7_circuit(lst, m)
+            wits = kind7_witnesses(np, lst, dev, rng, s, m)
+            seeds, blinds = list(range(700, 700 + s)), list(range(800, 800 + s))
+            if kind == 7:
+                prove = lambda: lst.prove_r1cs_succinct_batch(
+                    r1cs, wits, ctx, seeds, zk, blinding_seeds=blinds if zk else None,
+                    pipeline_chunk=chunk)
+                blobs = lambda out: [p.to_bytes() for p in out]
+            else:
+                prove = lambda: lst.prove_r1cs_succinct_aggregate(
+                    r1cs, wits, ctx, seeds, zk, blinding_seeds=blinds if zk else None)
+                blobs = lambda out: [out.to_bytes()]
+            rec, outs = {}, {}
+            for on in (True, False):
+                fri_device.DEVICE_TRANSCRIPT = on
+                prove()  # a batch after one of another shape synchronises more often
+                kernels.reset_launches()
+                outs[on], syncs = count_syncs(torch, prove)
+                launches = kernels.launches()
+                if on:
+                    shapes = dict(kernels.LAUNCHES)
+                rec["chain" if on else "per_layer"] = dict(
+                    launches=kernel_groups(launches), host_syncs_per_batch=syncs, times=[])
+            chain, per_layer, chain_out = rec["chain"], rec["per_layer"], outs[True]
+            if blobs(chain_out) != blobs(outs[False]):
+                raise RuntimeError(f"phase 27 {label}: the chain and the per-layer route differ")
+            if kind == 7:
+                if not all(verify_r1cs_succinct(p, [1], r1cs) for p in chain_out):
+                    raise RuntimeError(f"phase 27 {label}: a chain proof does not verify")
+                reject_tampered(chain_out[0], r1cs, lst.NTT_MODULUS, f"phase 27 {label}")
+            else:
+                if not verify_r1cs_succinct_aggregate(chain_out, [[1]] * s, r1cs):
+                    raise RuntimeError(f"phase 27 {label}: the chain's aggregate does not verify")
+                reject_tampered_aggregate(chain_out, r1cs, f"phase 27 {label}")
+            for on in CHAIN_ORDER:
+                fri_device.DEVICE_TRANSCRIPT = on
+                torch.cuda.synchronize()
+                t = time.time()
+                prove()
+                rec["chain" if on else "per_layer"]["times"].append(time.time() - t)
+            for on in (True, False):
+                fri_device.DEVICE_TRANSCRIPT = on
+                wall, busy, _top = device_busy(torch, prove, trace)
+                route = rec["chain" if on else "per_layer"]
+                route.update(median_s=sorted(route["times"])[len(route["times"]) // 2],
+                             profiled_wall_s=wall, device_busy_s=busy,
+                             device_idle_share=None if busy is None else 1.0 - busy / wall)
+            fri_device.DEVICE_TRANSCRIPT = True
+            record[label] = dict(kind=kind, m=m, statements=s, zk=zk, chunk=chunk, **rec)
+
+            def fmt(r, s=s):
+                idle = r["device_idle_share"]
+                return (f"median {r['median_s']:.4f} s ({s / r['median_s']:.2f} proofs/s), "
+                        f"idle share {idle if idle is None else round(idle, 3)}, "
+                        f"launches {r['launches']}, host syncs {r['host_syncs_per_batch']}")
+
+            phase(f"phase 27 {label} m={m} S={s} zk={zk} chunk={chunk}: byte-identical on both "
+                  f"routes, verified, tampered rejected; chain {fmt(chain)}; per-layer "
+                  f"{fmt(per_layer)}")
+            chain_shapes = {k: v for k, v in shapes.items() if k[0] in CHAIN_ENTRIES}
+            entries += hold_path_shapes(np, torch, lst, dev, rng, hold, chain_shapes, held,
+                                        f"chain_{label}", ctx, 27)
+    finally:
+        fri_device.DEVICE_TRANSCRIPT = True
+
+    # the chain of one k7a batch from dispatch to finish: no host
+    # synchronisation while it is enqueued, one pull in fri_chain_finish
+    m, s = KIND7_M, KIND7_S
+    ctx, r1cs = kind7_context(lst, m), kind7_circuit(lst, m)
+    wits = kind7_witnesses(np, lst, dev, rng, s, m)
+    seeds = list(range(700, 700 + s))
+    params = FriParams()
+    d_bound, n0, omega_n = sb._check_instance(r1cs, params, 0)
+    offset = sb.coset_offset(lst.NTT_MODULUS)
+    lde, comms, polys, forest = quotient_lde_device(*sb._embed_and_eval(r1cs, wits, dev), n0,
+                                                    offset, ctx, seeds)
+    chals, alphas, betas = sb._derive_batch_challenges(r1cs, wits, comms, forest.roots,
+                                                       lst.NTT_MODULUS)
+    evals = eval_device(polys, alphas, betas)
+    trs, lams = sb._seed_batch_transcripts(lst.NTT_MODULUS, m, 0, params, d_bound, forest.roots,
+                                           alphas, betas, evals)
+    g = fri_device.deep_combine_device(lde, alphas, betas, lams, evals, offset, omega_n)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t = time.perf_counter()
+        bundle, layout = fri_device.fri_chain_dispatch(g, [(lde, forest)], offset, omega_n,
+                                                       lst.NTT_MODULUS, params, trs)
+        enqueue_ms = (time.perf_counter() - t) * 1e3
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    proofs, pulls = count_syncs(torch, lambda: fri_device.fri_chain_finish(bundle, layout))
+    if pulls != 1:
+        raise RuntimeError(f"phase 27: fri_chain_finish synchronised {pulls} times, not once")
+    want = lst.prove_r1cs_succinct_batch(r1cs, wits, ctx, seeds)
+    if [p.to_bytes() for p in proofs] != [p.fri.to_bytes() for p in want]:
+        raise RuntimeError("phase 27: the staged chain differs from the entry point's proofs")
+    record["sync_check_k7a"] = dict(dispatch_enqueue_ms=enqueue_ms, finish_host_syncs=pulls)
+    phase(f"phase 27 fri_chain_dispatch at k7a under set_sync_debug_mode('error'): no host "
+          f"synchronisation ({enqueue_ms:.3f} ms to enqueue), fri_chain_finish one pull, the "
+          f"FRI proofs those of prove_r1cs_succinct_batch")
+    return entries, record
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2495,12 +2798,13 @@ def main() -> int:
         with open(os.path.join(kernels.build_dir(), f"lib{name}.log")) as f:
             for fn, regs, spills in ptxas_resources(f.read()):
                 print(f"  {name} {fn}: {regs}; {spills}", flush=True)
-    for name in ("ntt", "keccak", "quotient", "ring_commit"):
+    for name in ("ntt", "keccak", "quotient", "ring_commit", "fri"):
         for fn, mix in sass_mix(paths[name]).items():
             if any(k in fn for k in ("dft_pass", "forest_kernelILi1E", "forest_kernelILi2E",
                                      "forest_kernelILi4E", "forest_kernelILi5E",
                                      "forest_kernelILi6E", "quotient_kernel",
-                                     "ring_commit_kernel")):
+                                     "ring_commit_kernel", "absorb_kernel", "squeeze_kernel",
+                                     "fold_kernel")):
                 print(f"  {name} SASS {fn}: {mix}", flush=True)
 
     rng = np.random.default_rng(SEED)
@@ -2508,8 +2812,15 @@ def main() -> int:
 
     def hold(label: str, fn, plain, args, work, plain_reps: int = 3) -> dict:
         """Run a kernel and its plain twin on the same card tensors, demand
-        equal outputs, then time both; ``work`` is (bytes, 32-bit ops)."""
-        got, want = fn(*args), plain(*args)
+        equal outputs, then time both; ``work`` is (bytes, 32-bit ops).
+        With ``plain_reps=1`` the twin's time is its comparison call's,
+        between CUDA events (the twins take up to seconds a call)."""
+        got = fn(*args)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        want = plain(*args)
+        end.record()
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
@@ -2520,7 +2831,8 @@ def main() -> int:
             raise RuntimeError(f"{label} disagrees with its plain twin (max |err| {err})")
         del got, want
         ms = cuda_ms(torch, lambda: fn(*args), 20)
-        plain_ms = cuda_ms(torch, lambda: plain(*args), plain_reps)
+        plain_ms = start.elapsed_time(end) if plain_reps == 1 else \
+            cuda_ms(torch, lambda: plain(*args), plain_reps)
         bms, by = bound_ms(*work)
         phase(f"{label}: bit-exact; {ms:.4f} ms (plain {plain_ms:.2f} ms, "
               f"bound {bms:.4f} ms by {by})")
@@ -2794,6 +3106,8 @@ def main() -> int:
     md_entries, multidevice = multidevice_phase(np, torch, lst, dev, rng, hold, held,
                                                 plain_stream, stream["stream"], smi)
     entries += md_entries
+    chain_entries, chain_record = chain_phase(np, torch, lst, dev, rng, hold, held, smi)
+    entries += chain_entries
     print(json.dumps({"kind7": kind7}), flush=True)
     print(json.dumps({"kind7_2pow14": kind7_long, "launches_kind7_2pow14": k7_long,
                       "shape_launches_kind7_2pow14": [
@@ -2815,6 +3129,7 @@ def main() -> int:
     print(json.dumps({"kind9": kind9}), flush=True)
     print(json.dumps({"cli": cli_record}), flush=True)
     print(json.dumps({"multidevice": multidevice}), flush=True)
+    print(json.dumps({"fri_chain": chain_record}), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)

@@ -1,8 +1,9 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
 Each source in ``csrc/`` (``quotient.cu`` kernel Q, ``ring_commit.cu``
-kernel R, ``keccak.cu`` kernel K, ``ntt.cu`` kernels N and T; the headers
-``modmath.cuh``, ``butterfly.cuh`` and ``cluster.cuh`` they share) is compiled by
+kernel R, ``keccak.cu`` kernel K, ``ntt.cu`` kernels N and T, ``fri.cu``
+kernels S and F; the headers ``modmath.cuh``, ``butterfly.cuh``,
+``cluster.cuh`` and ``keccak_f.cuh`` they share) is compiled by
 ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface and
 loaded with ``ctypes``; nothing includes PyTorch's headers. Libraries go to
 ``build/torch_kernels/<digest>/`` beside the package, keyed by a digest of
@@ -41,6 +42,7 @@ SOURCES = {
     "ring_commit": "ring_commit.cu",
     "keccak": "keccak.cu",
     "ntt": "ntt.cu",
+    "fri": "fri.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -76,6 +78,15 @@ PROTOTYPES = {
     "ntt": {  # a pointer to host NttPass descriptors (ops.ntt_large.NttPassStruct)
         "ntt_four_step": [_P, _I, _U64, _P],
         "ntt_rows": [_P, _U64, _P],
+    },
+    "fri": {
+        # state in, state out, payload, words, head, has head, the label's
+        # two lanes and length, statements, the stream
+        "transcript_absorb": [_P, _P, _P, _I, _U64, _I, _U64, _U64, _I, _I, _P],
+        # state in, state out, out, first counter, squeezes, mask, field,
+        # the label's two lanes and length, statements, the stream
+        "transcript_squeeze": [_P, _P, _P, _U64, _I, _U64, _I, _U64, _U64, _I, _I, _P],
+        "fri_fold": [_P, _P, _P, _P, _I, _I, _P],
     },
 }
 

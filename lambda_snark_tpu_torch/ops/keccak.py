@@ -1,5 +1,6 @@
-"""Batched SHA3-256 Merkle hashing: kernel K (``csrc/keccak.cu``) and its
-plain PyTorch twin.
+"""Batched SHA3-256: kernel K (``csrc/keccak.cu``, Merkle hashing), kernel
+S (``csrc/fri.cu``, the FRI transcript sponge) and their plain PyTorch
+twins.
 
 Three single-block messages, the Merkle layer of the FRI proofs:
 
@@ -27,7 +28,18 @@ is its 32 bytes. Kernel K replaces the TPU kernel
 wrappers. The wrappers launch it for CUDA tensors and run the ``*_plain``
 twins for CPU tensors.
 
-The twin keeps each 64-bit lane as one int64 tensor: ``<<`` wraps mod 2^64,
+Kernel S runs ``proof.fri.FriTranscript``'s SHA3-256 ratchet for S
+statements at once, states (S, 4) words on the device:
+``transcript_absorb`` (SHA3-256(state || label || head || payload), the
+layer roots and ``fri-final``) and ``transcript_squeeze`` (squeezes of
+label || LE64(counter) in a row: the fold challenges reduced mod p, the
+query indices masked). It is the counterpart of the JAX package's
+``_sha3_bytes_dev`` / ``DevTranscript`` / ``_challenge_planes``
+(lambda_snark_tpu/proof/fri_device.py:678-779), XLA device functions; its
+twins are ``transcript_absorb_plain`` and ``transcript_squeeze_plain``, a
+sponge over ``keccak_f_plain``.
+
+The twins keep each 64-bit lane as one int64 tensor: ``<<`` wraps mod 2^64,
 and the arithmetic ``>>`` is masked to the bits a logical shift would give.
 """
 
@@ -293,3 +305,159 @@ def merkle_forest(values: torch.Tensor) -> List[torch.Tensor]:
     (leaf i pairs values i and i + n/2), as ``merkle_forest_flex``."""
     _check(values, 2, "merkle_forest")
     return _forest(values[:, None, :], paired=True)
+
+
+# --- kernel S: the FRI transcript sponge ------------------------------------------
+
+GOLDILOCKS = 18446744069414584321
+_RATE_LANES = 17  # a SHA3-256 rate block, 136 bytes
+_MAX_LABEL = 16  # label bytes: lanes 4 and 5 of the message
+
+
+def _label_lanes(label: bytes) -> Tuple[int, int]:
+    """A label's bytes as message lanes 4 and 5 (LE, zero-padded)."""
+    if len(label) > _MAX_LABEL:
+        raise ValueError(f"transcript label of {len(label)} bytes: at most {_MAX_LABEL}")
+    padded = label.ljust(_MAX_LABEL, b"\0")
+    return int.from_bytes(padded[:8], "little"), int.from_bytes(padded[8:], "little")
+
+
+def _sponge_plain(state: torch.Tensor, label: bytes, stream: torch.Tensor) -> torch.Tensor:
+    """SHA3-256(state || label || LE64(stream words)) per row: state (S, 4)
+    and stream (S, W) words -> digests (S, 4)."""
+    s, width = stream.shape
+    base = 32 + len(label)  # the stream's first byte
+    length = base + 8 * width
+    blocks = length // 136 + 1
+    label_lanes = _label_lanes(label)
+    zero = torch.zeros(s, dtype=torch.int64, device=state.device)
+
+    def word(i: int) -> torch.Tensor:
+        return stream[:, i] if 0 <= i < width else zero
+
+    a = [zero] * 25
+    for b in range(blocks):
+        for k in range(_RATE_LANES):
+            j = b * _RATE_LANES + k
+            lane = state[:, j] if j < 4 else zero
+            if j in (4, 5):
+                lane = lane | _signed(label_lanes[j - 4])
+            off = 8 * j - base
+            q, r = off >> 3, off & 7
+            w = _shr(word(q), 8 * r) | (word(q + 1) << (64 - 8 * r)) if r else word(q)
+            lane = lane | w
+            if length >> 3 == j:
+                lane = lane ^ _signed(0x06 << (8 * (length & 7)))
+            if j == blocks * _RATE_LANES - 1:
+                lane = lane ^ _signed(0x80 << 56)
+            a[k] = a[k] ^ lane
+        a = keccak_f_plain(a)
+    return torch.stack(a[:4], dim=1)
+
+
+def challenge_words(first: torch.Tensor) -> torch.Tensor:
+    """A digest's first LE64 word (S,) -> the canonical field challenge: the
+    word less p once where it is >= p (it is < 2^64 < 2p), as
+    ``FriTranscript.challenge_field`` reduces it mod p."""
+    p_signed = _signed(GOLDILOCKS)  # -(2^32 - 1): words >= p are [p_signed, -1]
+    over = (first < 0) & (first >= p_signed)
+    return first - over.to(torch.int64) * p_signed
+
+
+def _stream(state: torch.Tensor, payload, head) -> torch.Tensor:
+    parts = []
+    if head is not None:
+        parts.append(torch.full((state.shape[0], 1), _signed(head), dtype=torch.int64,
+                                device=state.device))
+    if payload is not None:
+        parts.append(payload)
+    if not parts:
+        return state.new_zeros((state.shape[0], 0))
+    return torch.cat(parts, dim=1)
+
+
+def transcript_absorb_plain(state: torch.Tensor, label: bytes, payload=None,
+                            head=None) -> torch.Tensor:
+    return _sponge_plain(state, label, _stream(state, payload, head))
+
+
+def transcript_squeeze_plain(state: torch.Tensor, label: bytes, counter: int, count: int,
+                             mask=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    outs = []
+    for i in range(count):
+        state = _sponge_plain(state, label, _stream(state, None, counter + i))
+        first = state[:, 0]
+        outs.append(challenge_words(first) if mask is None else first & mask)
+    return state, torch.stack(outs, dim=1)
+
+
+def _check_state(state: torch.Tensor) -> None:
+    _check(state, 2, "transcript state")
+    if state.shape[1] != 4:
+        raise ValueError(f"transcript state: expected (S, 4) words, got {tuple(state.shape)}")
+
+
+def transcript_absorb(state: torch.Tensor, label: bytes, payload=None,
+                      head=None) -> torch.Tensor:
+    """The states (S, 4) after absorbing ``label``, the LE64 word ``head``
+    (if given) and each statement's payload row (S, W) words:
+    SHA3-256(state || label || head || payload) per statement, as
+    ``FriTranscript.absorb`` (``absorb_words`` is head = the word count)."""
+    _check_state(state)
+    if payload is not None:
+        _check(payload, 2, "transcript payload")
+        if payload.shape[0] != state.shape[0] or payload.device != state.device:
+            raise ValueError("transcript payload: one row per state, on the state's device")
+    if state.device.type == "cpu":
+        return transcript_absorb_plain(state, label, payload, head)
+    lo, hi = _label_lanes(label)
+    words = 0 if payload is None else payload.shape[1]
+    out = torch.empty_like(state)
+    rc = kernels.launch(state.device, kernels.load("fri").transcript_absorb, state.data_ptr(),
+                        out.data_ptr(), 0 if payload is None else payload.data_ptr(), words,
+                        0 if head is None else head, int(head is not None), lo, hi,
+                        len(label), state.shape[0])
+    kernels.check(rc, "kernel S (transcript_absorb)")
+    variant = label.decode() + ("" if head is None else " head")
+    kernels.count("transcript_absorb", 1, (state.shape[0], words), variant)
+    return out
+
+
+def transcript_squeeze(state: torch.Tensor, label: bytes, counter: int, count: int,
+                       mask=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``count`` squeezes of ``label`` || LE64(counter + i) in a row per
+    statement: (the last states (S, 4), the outputs (S, count)), each the
+    digest's first LE64 word reduced mod p (``mask`` None) or ANDed with
+    ``mask``."""
+    _check_state(state)
+    if state.device.type == "cpu":
+        return transcript_squeeze_plain(state, label, counter, count, mask)
+    lo, hi = _label_lanes(label)
+    new = torch.empty_like(state)
+    out = torch.empty((state.shape[0], count), dtype=torch.int64, device=state.device)
+    rc = kernels.launch(state.device, kernels.load("fri").transcript_squeeze, state.data_ptr(),
+                        new.data_ptr(), out.data_ptr(), counter, count,
+                        0 if mask is None else mask, int(mask is None), lo, hi, len(label),
+                        state.shape[0])
+    kernels.check(rc, "kernel S (transcript_squeeze)")
+    variant = label.decode() + (" field" if mask is None else f" mask {mask}")
+    kernels.count("transcript_squeeze", 1, (state.shape[0], count), variant)
+    return new, out
+
+
+def transcript_squeeze_field(state: torch.Tensor, label: bytes, counter: int):
+    """One squeeze of ``label`` || LE64(counter) per statement: (the new
+    states, the field challenges (S,)), as ``FriTranscript.challenge_field``
+    over Goldilocks with its counter at ``counter``."""
+    new, out = transcript_squeeze(state, label, counter, 1)
+    return new, out[:, 0]
+
+
+def transcript_squeeze_indices(state: torch.Tensor, label: bytes, counter: int, count: int,
+                               bound: int):
+    """``count`` squeezes in a row, counters ``counter``, ``counter`` + 1,
+    ...: (the last states, the indices (S, count) in [0, bound)), as
+    ``FriTranscript.challenge_indices`` for a power-of-two ``bound``."""
+    if bound < 1 or bound & (bound - 1) or count < 1:
+        raise ValueError(f"index squeeze: bound {bound} must be a power of two, count >= 1")
+    return transcript_squeeze(state, label, counter, count, bound - 1)

@@ -1,19 +1,18 @@
 """Device-resident FRI proving over Goldilocks (the port's counterpart of
-the JAX package's ``proof/fri_device.py``, on its per-layer host-transcript
-branch, ``DEVICE_TRANSCRIPT = False``).
+the JAX package's ``proof/fri_device.py``), on both of its routes.
 
 - codewords stay on the device as (S, n) or (S, K, n) int64 words;
 - every Merkle forest is built there by one launch of kernel K
-  (``ops.keccak.merkle_forest``), leaf level to root; the host sees 32-byte
-  roots;
-- each fold layer is a handful of torch ops with a cached 1/x table;
+  (``ops.keccak.merkle_forest``), leaf level to root;
+- each fold layer is one launch of kernel F (``ops.fri_fold.fold``) with a
+  cached 1/x table;
 - the DEEP combination runs in torch ops (Montgomery batch inversion, with
   one host inverse per row); the aggregate (kind 8) passes its
   cross-statement lambda ladder as tables and sums the statements'
   quotients into one codeword (``sum_statements_device``); kind 9's takes
   a table of (oracle, point, value) terms and a shifted degree-bound
   column (``deep_combine_terms_device``);
-- the final polynomials come from kernel N (the inverse transform of the
+- the final polynomials come from kernel T (the inverse transform of the
   residual codewords) on the device;
 - the query openings (values and authentication paths of every layer) are
   gathered on the device and pulled in one transfer per batch; a FRI
@@ -21,8 +20,22 @@ branch, ``DEVICE_TRANSCRIPT = False``).
   (kind 9's pre and sum groups) and a group in several trees (the
   aggregate's one tree per statement), each opened at the same indices.
 
-Transcripts stay on the host (``proof.fri.FriTranscript``); the per-layer
-roots absorb there, in the JAX order. Proof bytes equal the JAX package's.
+Two routes, chosen by ``DEVICE_TRANSCRIPT`` as in the JAX package:
+
+- on (the default): the single-dispatch chain (``fri_chain_dispatch``,
+  ``fri_chain_finish``). The Fiat-Shamir transcripts run on the device too
+  (``DevTranscript``, kernel S): every fold challenge, layer root, the
+  final polynomial (with its degree check as a flag) and the query indices
+  stay there, so the whole commit and query phase is enqueued on one
+  stream with no host synchronisation and reaches the host once, in the
+  bundle that ``fri_chain_finish`` pulls. The host ``FriTranscript``s are
+  read for their seeded states and not advanced.
+- off: the per-layer route (``fri_commit_layers``, ``fri_open``): the
+  transcripts stay on the host (``proof.fri.FriTranscript``), so each
+  layer's roots come to the host before the next challenge. Kind 9 proves
+  on it always (its chain takes no unequal groups in the JAX package).
+
+Proof bytes equal the JAX package's on either route.
 """
 
 from __future__ import annotations
@@ -36,7 +49,7 @@ import torch
 
 from ..core import field
 from ..core.errors import DomainError
-from ..ops import keccak, modarith
+from ..ops import fri_fold, keccak, modarith
 from ..ops.ntt import NttPlan
 from ..ops.ntt_batched import ntt_forward_batched
 from ..utils.timing import stage
@@ -131,17 +144,6 @@ def _layer_inv_tables(n0: int, offset: int, omega: int, device) -> List[torch.Te
             off, om, n = off * off % P, om * om % P, n // 2
         _TABLE_CACHE[key] = tabs
     return _TABLE_CACHE[key]
-
-
-_INV2 = field.mod_inverse(2, P)
-
-
-def _fold(cur: torch.Tensor, inv_x: torch.Tensor, cs: torch.Tensor) -> torch.Tensor:
-    """(S, n) -> (S, n/2): v' = ((lo + hi) + c (lo - hi) / x) / 2."""
-    half = cur.shape[1] // 2
-    lo, hi = cur[:, :half], cur[:, half:]
-    t = modarith.mul_mod(modarith.mul_mod(cs[:, None], modarith.sub_mod(lo, hi, P), P), inv_x, P)
-    return modarith.mul_mod(modarith.add_mod(modarith.add_mod(lo, hi, P), t, P), _INV2, P)
 
 
 # --- DEEP combination -------------------------------------------------------------
@@ -288,15 +290,24 @@ def deep_combine_terms_device(cw: torch.Tensor, points, term_oracle: Sequence[in
 
 # --- the prover -------------------------------------------------------------------
 
+#: True routes ``fri_prove_device`` through the single-dispatch chain (the
+#: JAX package's default); False keeps the per-layer host-transcript route.
+DEVICE_TRANSCRIPT = True
+
+
+def _split_flat(flat: np.ndarray, shapes) -> List[np.ndarray]:
+    out, off = [], 0
+    for shape in shapes:
+        size = int(np.prod(shape))
+        out.append(flat[off: off + size].reshape(shape))
+        off += size
+    return out
+
 
 def _gather_pull(parts: List[torch.Tensor]) -> List[np.ndarray]:
     """One device-to-host transfer for every gathered tensor."""
     flat = modarith.to_u64(torch.cat([p.reshape(-1) for p in parts]))
-    out, off = [], 0
-    for p in parts:
-        out.append(flat[off: off + p.numel()].reshape(tuple(p.shape)))
-        off += p.numel()
-    return out
+    return _split_flat(flat, [tuple(p.shape) for p in parts])
 
 
 _FINAL_CACHE: dict = {}
@@ -315,24 +326,38 @@ def _final_tables(n: int, off: int, om: int, device):
     return _FINAL_CACHE[key]
 
 
-def _final_polynomial(cur: torch.Tensor, off: int, om: int, final_len: int) -> List[List[int]]:
-    """Per row of the residual codewords (S, n) on off <om>: the inverse
-    transform, untwisted by off^-i, pulled to the host; every coefficient
-    from ``final_len`` on must vanish."""
+def _final_coefficients(cur: torch.Tensor, off: int, om: int) -> torch.Tensor:
+    """The coefficients (S, n) of the residual codewords (S, n) on off <om>,
+    on the device: the inverse transform, untwisted by off^-i."""
     transform, untwist = _final_tables(cur.shape[1], off, om, cur.device)
-    fin = modarith.to_u64(modarith.mul_mod(transform(cur.contiguous()), untwist, P))
+    return modarith.mul_mod(transform(cur.contiguous()), untwist, P)
+
+
+def _final_polynomial(cur: torch.Tensor, off: int, om: int, final_len: int) -> List[List[int]]:
+    """Per row of the residual codewords, its coefficients pulled to the
+    host; every coefficient from ``final_len`` on must vanish."""
+    fin = modarith.to_u64(_final_coefficients(cur, off, om))
     if fin[:, final_len:].any():
         raise DomainError("FRI final polynomial exceeds its degree bound")
     return [[int(v) for v in row[:final_len]] for row in fin]
 
 
+def _check_inputs(g: torch.Tensor, inputs) -> Tuple[int, int]:
+    """(S, n0) of g, once the input groups agree with it."""
+    s, n0 = g.shape
+    _trees_per_statement(inputs, s)
+    if any(vals.shape[2] != n0 for vals, _f in inputs):
+        raise ValueError("g, the input codewords and the forest disagree on shape")
+    return s, n0
+
+
 def fri_commit_layers(g: torch.Tensor, offset: int, omega: int, q: int,
                       params: FriParams, trs: Sequence[FriTranscript]):
-    """The commit phase of FRI on g (S, n0): fold with each transcript's
-    challenge, commit every layer above the final length (kernel K) and
-    absorb its roots, then absorb the final polynomials and draw the query
-    indices. Returns (committed [(values (S, n), forest)], finals,
-    indices (S, Q) on the device)."""
+    """The commit phase of FRI on g (S, n0), transcripts on the host: fold
+    with each transcript's challenge, commit every layer above the final
+    length (kernel K) and absorb its roots, then absorb the final
+    polynomials and draw the query indices. Returns (committed [(values
+    (S, n), forest)], finals, indices (S, Q) on the device)."""
     stage("fri:dispatch")
     if q != P:
         raise DomainError("device FRI is implemented for the Goldilocks modulus")
@@ -343,12 +368,12 @@ def fri_commit_layers(g: torch.Tensor, offset: int, omega: int, q: int,
     final_len = _effective_final_len(d_bound, params.final_len)
     tabs = _layer_inv_tables(n0, offset, omega, dev)
     committed: List[Tuple[torch.Tensor, DevForest]] = []
-    cur = g
+    cur = g.contiguous()
     off, om, d = offset, omega, d_bound
     layer = 0
     while True:
         cs = _words([tr.challenge_field(q, b"fri-fold") for tr in trs], dev)
-        cur = _fold(cur, tabs[layer], cs)
+        cur = fri_fold.fold(cur, tabs[layer], cs)
         layer += 1
         off, om, d = off * off % q, om * om % q, d >> 1
         if d <= final_len:
@@ -365,11 +390,11 @@ def fri_commit_layers(g: torch.Tensor, offset: int, omega: int, q: int,
     return committed, finals, idx
 
 
-def _take_siblings(forest: DevForest, pos: torch.Tensor) -> List[torch.Tensor]:
-    """The path of every leaf in ``pos`` (S, Q): one (S, Q, 4) tensor per
-    level below the root."""
+def _take_siblings(levels: List[torch.Tensor], pos: torch.Tensor) -> List[torch.Tensor]:
+    """The path of every leaf in ``pos`` (T, Q) of a forest's ``levels``:
+    one (T, Q, 4) tensor per level below the root."""
     return [lvl.gather(1, ((pos >> i) ^ 1)[:, :, None].expand(-1, -1, 4))
-            for i, lvl in enumerate(forest.levels[:-1])]
+            for i, lvl in enumerate(levels[:-1])]
 
 
 def _trees_per_statement(inputs, s: int) -> List[int]:
@@ -384,34 +409,37 @@ def _trees_per_statement(inputs, s: int) -> List[int]:
     return trees
 
 
-def fri_open(inputs, committed, finals, idx: torch.Tensor) -> List[FriProof]:
-    """The query phase: gather every opened value and path on the device,
-    pull them in one transfer, and assemble one FriProof per statement.
-
-    ``inputs`` lists the input groups in the order of a query's openings,
-    each as (codewords (S, K, n0), forest); statement i's K oracles of a
-    group sit in T = n_trees / S trees of K / T oracles (trees i T + t),
-    each opened at its indices. Groups may differ in K and T (kind 7: one
-    group of 4 oracles; kind 8: one of 4 S' oracles in S' trees; kind 9:
-    the pre group of 5 or 6 and the sum group of 2)."""
+def _open_parts(inputs, layers, idx: torch.Tensor):
+    """The query phase's gathers, on the device and not pulled: every input
+    group's values at idx and idx + n0/2 and its paths, then each committed
+    layer's pair and path. ``layers`` lists (values (S, n), forest levels)
+    per committed layer. Returns (parts, the groups' (oracles a tree,
+    trees, depth), the layers' depths)."""
     s, nq = idx.shape
     parts, specs = [], []
     for (vals, forest), trees in zip(inputs, _trees_per_statement(inputs, s)):
         k_in, n0 = vals.shape[1:]
         idx_k = idx[:, None, :].expand(-1, k_in, -1)
         parts += [vals.gather(2, idx_k), vals.gather(2, idx_k + n0 // 2)]
-        parts += _take_siblings(forest, idx.repeat_interleave(trees, dim=0))
+        per_tree = idx[:, None, :].expand(-1, trees, -1).reshape(s * trees, nq)
+        parts += _take_siblings(forest.levels, per_tree)
         specs.append((k_in // trees, trees, len(forest.levels) - 1))
     depths = []
     pos = idx
-    for values, forest in committed:
-        half = forest.num_leaves
+    for values, levels in layers:
+        half = levels[0].shape[1]
         pos = pos % half
         parts += [values.gather(1, pos), values.gather(1, pos + half)]
-        parts += _take_siblings(forest, pos)
-        depths.append(len(forest.levels) - 1)
-    pulled = iter(_gather_pull(parts))
-    stage("fri:queries-pulled")
+        parts += _take_siblings(levels, pos)
+        depths.append(len(levels) - 1)
+    return parts, specs, depths
+
+
+def _assemble(pulled, specs, depths, roots, finals, s: int, nq: int) -> List[FriProof]:
+    """One FriProof per statement from ``pulled``, an iterator over the
+    host copies of ``_open_parts``'s parts in order; roots[l][i] is
+    statement i's root of committed layer l, finals[i] its final
+    polynomial."""
 
     def path_bytes(depth: int, rows: int) -> np.ndarray:  # (rows, Q, depth * 32)
         levels = [next(pulled) for _ in range(depth)]
@@ -438,21 +466,169 @@ def fri_open(inputs, committed, finals, idx: torch.Tensor) -> List[FriProof]:
             layer_ops = tuple(LayerOpening(v_lo[si][qi], v_hi[si][qi], path[si, qi].tobytes())
                               for v_lo, v_hi, path in layers)
             queries.append(FriQuery(opened, layer_ops))
-        roots = tuple(forest.roots[si] for _v, forest in committed)
-        proofs.append(FriProof(roots, tuple(finals[si]), tuple(queries)))
+        proofs.append(FriProof(tuple(layer[si] for layer in roots), tuple(finals[si]),
+                               tuple(queries)))
     return proofs
+
+
+def fri_open(inputs, committed, finals, idx: torch.Tensor) -> List[FriProof]:
+    """The query phase of the per-layer route: gather every opened value
+    and path on the device, pull them in one transfer, and assemble one
+    FriProof per statement.
+
+    ``inputs`` lists the input groups in the order of a query's openings,
+    each as (codewords (S, K, n0), forest); statement i's K oracles of a
+    group sit in T = n_trees / S trees of K / T oracles (trees i T + t),
+    each opened at its indices. Groups may differ in K and T (kind 7: one
+    group of 4 oracles; kind 8: one of 4 S' oracles in S' trees; kind 9:
+    the pre group of 5 or 6 and the sum group of 2)."""
+    parts, specs, depths = _open_parts(inputs, [(v, f.levels) for v, f in committed], idx)
+    pulled = iter(_gather_pull(parts))
+    stage("fri:queries-pulled")
+    return _assemble(pulled, specs, depths, [f.roots for _v, f in committed], finals,
+                     *idx.shape)
+
+
+# --- the single-dispatch chain ------------------------------------------------------
+
+
+class DevTranscript:
+    """Device mirror of ``FriTranscript`` for S statements in lockstep: the
+    32-byte ratchet states as (S, 4) LE64 words, one static counter shared
+    by all (it increments before each squeeze, as ``FriTranscript._squeeze``
+    does). Absorbs and squeezes are kernel S launches."""
+
+    def __init__(self, state: torch.Tensor, counter: int) -> None:
+        self.state, self.counter = state, counter
+
+    @staticmethod
+    def upload(trs: Sequence[FriTranscript], device) -> "DevTranscript":
+        """The host transcripts' states on ``device``; a copy to the card
+        goes from pinned memory and does not wait for it."""
+        counters = {tr._counter for tr in trs}
+        if len(counters) != 1:
+            raise ValueError("statement transcripts must be in lockstep")
+        words = np.stack([np.frombuffer(tr._state, dtype="<u8") for tr in trs])
+        state = torch.from_numpy(words.view(np.int64))
+        if torch.device(device).type == "cuda":
+            state = state.pin_memory().to(device, non_blocking=True)
+        return DevTranscript(state, counters.pop())
+
+    def absorb(self, label: bytes, payload: torch.Tensor, head=None) -> None:
+        self.state = keccak.transcript_absorb(self.state, label, payload, head)
+
+    def challenge_field(self, label: bytes) -> torch.Tensor:
+        """(S,) challenges, as ``FriTranscript.challenge_field`` over Goldilocks."""
+        self.counter += 1
+        self.state, cs = keccak.transcript_squeeze_field(self.state, label, self.counter)
+        return cs
+
+    def challenge_indices(self, bound: int, count: int, label: bytes) -> torch.Tensor:
+        """(S, count) indices, as ``FriTranscript.challenge_indices`` for a
+        power-of-two bound."""
+        self.state, idx = keccak.transcript_squeeze_indices(self.state, label, self.counter + 1,
+                                                            count, bound)
+        self.counter += count
+        return idx
+
+
+@dataclasses.dataclass(frozen=True)
+class ChainLayout:
+    """The static layout of a chain bundle: the shape of each part in
+    order (the layer roots (L, S, 4), the finals (S, final_len), the degree
+    flags (S,), then ``_open_parts``'s gathers) and what ``_assemble``
+    needs."""
+
+    shapes: Tuple[Tuple[int, ...], ...]
+    specs: Tuple[Tuple[int, int, int], ...]
+    depths: Tuple[int, ...]
+    statements: int
+    queries: int
+
+
+def fri_chain_dispatch(g: torch.Tensor, inputs, offset: int, omega: int, q: int,
+                       params: FriParams, trs: Sequence[FriTranscript]):
+    """Enqueue the whole FRI commit and query phase on the current stream:
+    per layer a fold challenge (kernel S), the fold (kernel F), the layer's
+    forest (kernel K) and its root absorbed (kernel S); the final
+    polynomials (kernel T) with their degree flags, ``fri-final`` absorbed,
+    the query indices drawn (kernel S), and every opening gathered.
+    Returns (bundle, layout): the bundle a flat device tensor of words that
+    nothing has pulled, the layout static (``ChainLayout``). Nothing here
+    waits for the device once the tables of the shape are cached (their
+    first use uploads them). ``inputs`` and ``trs`` are
+    ``fri_prove_device``'s; the transcripts are read, not advanced.
+    Pipelined callers dispatch several chunks before finishing any."""
+    if q != P:
+        raise DomainError("device FRI is implemented for the Goldilocks modulus")
+    params.validate()
+    s, n0 = _check_inputs(g, inputs)
+    dev = g.device
+    d_bound = n0 >> params.log_blowup
+    final_len = _effective_final_len(d_bound, params.final_len)
+    tabs = _layer_inv_tables(n0, offset, omega, dev)
+    stage("chain:dispatch")
+    tr = DevTranscript.upload(trs, dev)
+    layers, roots = [], []
+    cur = g.contiguous()
+    off, om, d = offset, omega, d_bound
+    layer = 0
+    while True:
+        cur = fri_fold.fold(cur, tabs[layer], tr.challenge_field(b"fri-fold"))
+        layer += 1
+        off, om, d = off * off % P, om * om % P, d >> 1
+        if d <= final_len:
+            break
+        levels = keccak.merkle_forest(cur)
+        root = levels[-1].reshape(s, 4)
+        tr.absorb(b"fri-layer-root", root)
+        layers.append((cur, levels))
+        roots.append(root)
+    fin = _final_coefficients(cur, off, om)
+    over = (fin[:, final_len:] != 0).any(dim=1)
+    fin = fin[:, :final_len].contiguous()
+    tr.absorb(b"fri-final", fin, head=final_len)
+    idx = tr.challenge_indices(n0 // 2, params.num_queries, b"fri-query")
+    parts, specs, depths = _open_parts(inputs, layers, idx)
+    head = [torch.stack(roots) if roots else g.new_zeros((0, s, 4)), fin,
+            over.to(torch.int64)]
+    bundle = torch.cat([p.reshape(-1) for p in head + parts])
+    return bundle, ChainLayout(tuple(tuple(p.shape) for p in head + parts), tuple(specs),
+                               tuple(depths), s, params.num_queries)
+
+
+def fri_chain_finish(bundle: torch.Tensor, layout: ChainLayout) -> List[FriProof]:
+    """Pull a chain bundle in one transfer and build one FriProof per
+    statement; raises DomainError where a final polynomial exceeds its
+    degree bound."""
+    flat = modarith.to_u64(bundle)
+    stage("chain:bundle-pulled")
+    pulled = iter(_split_flat(flat, layout.shapes))
+    roots, finals, over = next(pulled), next(pulled), next(pulled)
+    if over.any():
+        raise DomainError("FRI final polynomial exceeds its degree bound")
+    layer_roots = [[bytes(r) for r in layer] for layer in roots.view(np.uint8)]
+    return _assemble(pulled, layout.specs, layout.depths, layer_roots, finals.tolist(),
+                     layout.statements, layout.queries)
+
+
+def fri_prove_device_chain(g: torch.Tensor, inputs, offset: int, omega: int, q: int,
+                           params: FriParams, trs: Sequence[FriTranscript]) -> List[FriProof]:
+    """``fri_chain_dispatch`` then ``fri_chain_finish``: one FriProof per
+    statement, byte-identical to the JAX prover."""
+    return fri_chain_finish(*fri_chain_dispatch(g, inputs, offset, omega, q, params, trs))
 
 
 def fri_prove_device(g: torch.Tensor, inputs, offset: int, omega: int, q: int,
                      params: FriParams, trs: Sequence[FriTranscript]) -> List[FriProof]:
-    """One FriProof per statement, byte-identical to the JAX prover.
+    """One FriProof per statement, byte-identical to the JAX prover, by the
+    chain (``DEVICE_TRANSCRIPT``) or the per-layer route.
 
     g (S, n0): combined DEEP quotients; ``inputs``: the committed input
     groups as ``fri_open`` takes them (the aggregate passes its (S', 4, n0)
     codewords as (1, 4 S', n0) with its S' trees); trs: one transcript per
     statement, seeded with the roots and evaluations already."""
-    s, n0 = g.shape
-    _trees_per_statement(inputs, s)
-    if any(vals.shape[2] != n0 for vals, _f in inputs):
-        raise ValueError("g, the input codewords and the forest disagree on shape")
+    if DEVICE_TRANSCRIPT:
+        return fri_prove_device_chain(g, inputs, offset, omega, q, params, trs)
+    _check_inputs(g, inputs)
     return fri_open(inputs, *fri_commit_layers(g, offset, omega, q, params, trs))

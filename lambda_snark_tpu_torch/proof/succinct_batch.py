@@ -2,8 +2,8 @@
 batches and streams.
 
 The port of the JAX package's ``prove_r1cs_succinct_batch`` (its device
-front end and device FRI, with host transcripts), its chunk-pipelined
-prover ``_prove_pipelined`` and its service ``prove_r1cs_succinct_stream``:
+front end and device FRI chain), its chunk-pipelined prover
+``_prove_pipelined`` and its service ``prove_r1cs_succinct_stream``:
 
     host    witnesses -> (S, n) words                      (_embed_and_eval)
     host    ZK: rho_A, rho_B, rho_C from ChaCha20 per statement (_draw_masks)
@@ -12,7 +12,9 @@ prover ``_prove_pipelined`` and its service ``prove_r1cs_succinct_stream``:
     host    dual challenges over commitment digest, circuit digest, root
     device  A, B, C, Q at alpha and beta                   (eval_device)
     host    FRI transcripts, lambda                        (_seed_batch_transcripts)
-    device  DEEP combination, folds, kernel K per layer    (proof.fri_device)
+    device  DEEP combination; the FRI chain: transcripts (kernel S), folds
+            (kernel F), a forest per layer (kernel K), the final
+            polynomials (kernel T), indices and openings (proof.fri_device)
     host    query assembly from one pull
 
 That is the route of Goldilocks circuits on the power-of-two roots domain
@@ -23,11 +25,13 @@ does. At ring degree n < m the device front end runs without kernel R: the
 quotients come back in the front end's one pull and are committed on the
 host (``succinct_device.finish_quotient_lde``).
 
-With ``pipeline_chunk`` the batch runs in chunks, one after another.
-Proofs depend only on (witness, seed, blinding seed), so the bytes are the
-unchunked prover's. On an H100 chunking is slower than one batch (each
-chunk repeats the host's fixed part); it bounds the device memory of a
-large batch.
+With ``pipeline_chunk`` the batch runs in chunks, in the JAX package's
+three phases: every chunk's front end is enqueued, then each chunk is
+pulled and its FRI chain enqueued, then every chain's bundle is pulled.
+Its gate is JAX's: a non-ZK batch longer than the chunk at ring degree
+n >= m with ``fri_device.DEVICE_TRANSCRIPT`` on; otherwise the batch is
+proved unchunked. Proofs depend only on (witness, seed, blinding seed), so
+the bytes are the unchunked prover's.
 
 Kind 9 (``prove_r1cs_witness_batch``, and the stream with
 ``witness_bind=True``) proves one ``prove_r1cs_witness`` per statement, as
@@ -151,10 +155,11 @@ class _Geometry:
         self.offset = coset_offset(self.q)
 
 
-def _back_end(r1cs: R1CS, witnesses, d: Dispatched, first: int, geo: _Geometry
-              ) -> List[SuccinctProofR1CS]:
-    """A chunk's challenges, evaluations, transcripts, DEEP and FRI, and
-    its proofs assembled from one pull of the query openings."""
+def _back_end(r1cs: R1CS, witnesses, d: Dispatched, first: int, geo: _Geometry):
+    """A chunk's challenges, evaluations, transcripts, DEEP and FRI. With
+    ``DEVICE_TRANSCRIPT`` the FRI chain is only enqueued; either way the
+    result is a function that returns the chunk's proofs (on the chain,
+    after one pull of its bundle)."""
     q, params = geo.q, geo.params
     commitments, forest = finish_quotient_lde(d, first)
     stage("frontend:lde-pulled")
@@ -169,36 +174,48 @@ def _back_end(r1cs: R1CS, witnesses, d: Dispatched, first: int, geo: _Geometry
     g = fri_device.deep_combine_device(d.lde, alphas, betas, lams, evals, geo.offset,
                                        geo.omega_n)
     stage("prove:deep-dispatched")
-    committed, finals, idx = fri_device.fri_commit_layers(g, geo.offset, geo.omega_n, q,
-                                                          params, trs)
-    fri_proofs = fri_device.fri_open([(d.lde, forest)], committed, finals, idx)
-    stage("prove:fri-done")
-    return [
-        SuccinctProofR1CS(
-            commitments[i], forest.roots[i], *chals[i], *(int(v) for v in evals[i]),
-            fri=fri_proofs[i], m=geo.m, mask_len=geo.mask_len,
-            log_blowup=params.log_blowup, num_queries=params.num_queries,
-            final_len=params.final_len, modulus=q)
-        for i in range(len(witnesses))
-    ]
+    fri_args = (g, [(d.lde, forest)], geo.offset, geo.omega_n, q, params, trs)
+    pending, fri_proofs = None, None
+    if fri_device.DEVICE_TRANSCRIPT:
+        pending = fri_device.fri_chain_dispatch(*fri_args)
+    else:
+        fri_proofs = fri_device.fri_prove_device(*fri_args)
+
+    def finish() -> List[SuccinctProofR1CS]:
+        proofs = fri_device.fri_chain_finish(*pending) if fri_proofs is None else fri_proofs
+        stage("prove:fri-done")
+        return [
+            SuccinctProofR1CS(
+                commitments[i], forest.roots[i], *chals[i], *(int(v) for v in evals[i]),
+                fri=proofs[i], m=geo.m, mask_len=geo.mask_len,
+                log_blowup=params.log_blowup, num_queries=params.num_queries,
+                final_len=params.final_len, modulus=q)
+            for i in range(len(witnesses))
+        ]
+
+    return finish
 
 
 def _prove_chunks(r1cs: R1CS, witnesses, ctx: LweContext, seeds, params: FriParams,
                   masks: Optional[np.ndarray], chunk: int, dev: torch.device
                   ) -> List[SuccinctProofR1CS]:
     """Prove the batch in chunks of ``chunk`` statements (one chunk: the
-    unchunked prover), one after another."""
+    unchunked prover) in the JAX package's three phases
+    (``_prove_pipelined``): (A) every chunk's front end enqueued, (B) per
+    chunk its pull, challenges, evaluations, DEEP and FRI chain enqueued,
+    (C) every chunk's FRI bundle pulled and its proofs assembled."""
     geo = _Geometry(r1cs, params, 0 if masks is None else masks.shape[2])
-    proofs: List[SuccinctProofR1CS] = []
+    slices = [slice(i, min(i + chunk, len(witnesses))) for i in range(0, len(witnesses), chunk)]
     stage("prove:start")
-    for start in range(0, len(witnesses), chunk):
-        sl = slice(start, min(start + chunk, len(witnesses)))
+    fronts = []
+    for sl in slices:
         stage("frontend:lde-dispatch")
-        d = quotient_lde_dispatch(*_embed_and_eval(r1cs, witnesses[sl], dev), geo.n0,
-                                  geo.offset, ctx, list(seeds[sl]),
-                                  None if masks is None else masks[:, sl])
-        proofs += _back_end(r1cs, witnesses[sl], d, start, geo)
-    return proofs
+        fronts.append(quotient_lde_dispatch(*_embed_and_eval(r1cs, witnesses[sl], dev), geo.n0,
+                                            geo.offset, ctx, list(seeds[sl]),
+                                            None if masks is None else masks[:, sl]))
+    finishes = [_back_end(r1cs, witnesses[sl], d, sl.start, geo)
+                for sl, d in zip(slices, fronts)]
+    return [proof for finish in finishes for proof in finish()]
 
 
 def _prove_batch(r1cs: R1CS, witnesses, ctx: LweContext, seeds, params: FriParams,
@@ -216,7 +233,8 @@ def _prove_batch(r1cs: R1CS, witnesses, ctx: LweContext, seeds, params: FriParam
     masks = _draw_masks(mask_rngs, zk_mask_len(params), r1cs.modulus) if zk else None
     s = len(witnesses)
     chunk = s
-    if pipeline_chunk and not zk and ctx.n >= r1cs.m and s > pipeline_chunk:
+    if (pipeline_chunk and not zk and fri_device.DEVICE_TRANSCRIPT and ctx.n >= r1cs.m
+            and s > pipeline_chunk):
         chunk = pipeline_chunk
     return _prove_chunks(r1cs, witnesses, ctx, seeds, params, masks, chunk, dev)
 
@@ -237,8 +255,7 @@ def prove_r1cs_succinct_batch(r1cs: R1CS, witnesses: Sequence[Sequence[int]],
     ``zk=True`` needs one blinding seed per witness: statement i's masks
     come from ChaCha20 seeded with ``blinding_seeds[i]``. ``pipeline_chunk``
     proves a non-ZK batch longer than it in chunks of that many statements
-    (the same bytes; slower than one batch on an H100, with less device
-    memory); ``device_lde`` chooses
+    (the same bytes; see ``_prove_chunks``); ``device_lde`` chooses
     between JAX routes with the same bytes and is ignored."""
     params = fri_params or FriParams()
     params.validate()

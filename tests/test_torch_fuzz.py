@@ -169,7 +169,7 @@ def test_stage_marks_cover_a_kind7_batch(monkeypatch):
     labels = [label for label, _t in timing._STAGE_LOG]
     assert labels == ["prove:start", "frontend:lde-dispatch", "frontend:lde-pulled",
                       "frontend:challenges", "frontend:evals-pulled", "prove:transcripts-seeded",
-                      "prove:deep-dispatched", "fri:dispatch", "fri:queries-pulled",
+                      "prove:deep-dispatched", "chain:dispatch", "chain:bundle-pulled",
                       "prove:fri-done"]
 
 

@@ -3,7 +3,8 @@ against the JAX package, on the CPU (m = 16, ring n = 64, k = 1,
 ``FriParams(log_blowup=3, num_queries=8)``).
 
 - ``pipeline_chunk=2`` on 3 statements (an uneven tail chunk) gives the
-  bytes of JAX's pipelined and unchunked provers;
+  bytes of JAX's pipelined and unchunked provers, and on 5 statements
+  JAX's pipelined bytes;
 - the stream's bytes do not depend on its batch size and equal JAX's
   stream, plain and ZK, with per-index seeds (``_index_seed``);
 - a ``ProofStore`` resume serves the stored statements byte-identical;
@@ -63,6 +64,19 @@ def test_pipelined_bytes_equal_jax_pipelined_and_unchunked(setup_, jax_pipelined
     mine = port.prove_r1cs_succinct_batch(pr, ws, ours, seeds, fri_params=FriParams(*FAST),
                                           pipeline_chunk=chunk, device="cpu")
     assert _bytes(mine) == _bytes(piped) == _bytes(unchunked)
+
+
+def test_pipelined_s5_bytes_equal_jax_pipelined(setup_):
+    """S = 5 in chunks of 2 (two full chunks and a tail): the port's
+    three-phase prover gives the bytes of JAX's ``_prove_pipelined`` (the
+    same chunk shapes as the fixture's, compiled once in this process)."""
+    jax_ctx, ours, jr, pr = setup_
+    ws = [mult_witness(M, GL, seed=20 + i) for i in range(5)]
+    seeds = [81, 82, 83, 84, 85]
+    piped = jax_prove(jr, ws, jax_ctx, seeds, fri_params=JaxFriParams(*FAST), pipeline_chunk=2)
+    mine = port.prove_r1cs_succinct_batch(pr, ws, ours, seeds, fri_params=FriParams(*FAST),
+                                          pipeline_chunk=2, device="cpu")
+    assert _bytes(mine) == _bytes(piped)
 
 
 def test_pipelined_names_a_bad_witness_by_its_batch_index(setup_):
