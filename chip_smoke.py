@@ -11,7 +11,8 @@ Phases, each printing one flushed line with the seconds since start:
    registers and spills, and the SASS instruction mix of kernel T's
    ``dft_pass``, kernel K's forest kernel (G = 1 and 4, the kind-7 path's;
    2, 5 and 6, kind 9's), kernels Q and R at each cluster size and kernels
-   S and F; beside
+   S (``sponge_kernel``) and F (``fold_kernel``, ``fold_squeeze_kernel``);
+   beside
    them, the native host library (``native_bridge``, ``g++`` on
    ``native/src``) where there is a C++ compiler: a failed build fails the
    script;
@@ -168,19 +169,27 @@ Phases, each printing one flushed line with the seconds since start:
     in 18;
 27. the FRI chain (``proof.fri_device``, ``DEVICE_TRANSCRIPT``), which
     every kind-7 and kind-8 phase above runs by default: kernel S (the
-    transcript sponge, ``csrc/fri.cu``) at S = 1, 16 and 128 for each
+    transcript sponge, ``csrc/fri.cu``) at S = 1, 16, 32 and 128 for each
     entry (a layer root, ``fri-final`` at final_len 64, a fold challenge,
-    30 query indices) against its twin and ``hashlib.sha3_256``; then k7a,
-    k7b, ZK k7a, agg13 (plain and ZK), agg10 and the pipelined prover at
-    S = 64 and 128 (chunks of 32) proved with the switch on and off in
-    turns: the bytes equal both ways, the chain's proofs verify and
-    tampered ones are rejected, per route the median of three batches, the
-    idle share of one profiled batch, the launches of kernels S, F, K and T
-    and the host synchronisations of one batch (PyTorch's sync debug mode
-    in ``warn``); kernels S and F (the fold) held at every shape each chain
-    run launched them at; and ``fri_chain_dispatch`` of a k7a batch under
+    30 query indices, and the chain's ``fri-final`` absorb with its 30
+    query squeezes in one launch) against its twin and
+    ``hashlib.sha3_256``; then k7a, k7b, ZK k7a, agg13 (plain and ZK),
+    agg10 and the pipelined prover at S = 64 and 128 (chunks of 32)
+    proved with the switch on and off in turns: the bytes equal both ways,
+    the chain's proofs verify and tampered ones are rejected, per route
+    the median of three batches, the idle share of one profiled batch, the
+    launches of kernels S, F, K and T (the chain's S and F asserted:
+    ``CHAIN_LAUNCHES``) and the host synchronisations of one batch
+    (PyTorch's sync debug mode in ``warn``); kernels S and F held at every
+    shape each chain run launched them at, and kernel F's chain entry
+    (``fold_squeeze``) both with and without a root at each of its shapes,
+    its states, challenges and words against ``hashlib.sha3_256``; and
+    ``fri_chain_dispatch`` of a k7a batch under
     ``torch.cuda.set_sync_debug_mode("error")``, whose
-    ``fri_chain_finish`` synchronises once;
+    ``fri_chain_finish`` synchronises once. Kernels S and F are timed by
+    device time (CUDA events around a CUDA graph of 20 captured calls:
+    their wrappers' enqueue outlasts them), and each S and F shape gets a
+    latency bound beside its throughput bound (the ``fri_chain`` line);
 
 then the JSON lines: kind 7 at m = 2^13 (proofs/s, breakdown, idle share),
 kind 7 at m = 2^14, the streams, ZK kind 7, the pipelined prover, the
@@ -357,6 +366,31 @@ def cuda_ms(torch, fn, reps: int, each: bool = False) -> float:
     return sorted(times)[len(times) // 2]
 
 
+def graph_ms(torch, fn, reps: int = 20) -> float:
+    """Device time of ``fn`` in ms: CUDA events around one replay of a CUDA
+    graph of ``reps`` captured calls, the median of five replays. For
+    kernels that run shorter than their wrappers' enqueue, which
+    back-to-back calls would time instead."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return sorted(times)[len(times) // 2]
+
+
 def max_abs_err(np, modarith, got, want) -> float:
     """max |got - want| over unsigned 64-bit words."""
     g, w = modarith.to_u64(got), modarith.to_u64(want)
@@ -464,9 +498,16 @@ FOREST_ENTRIES = ("keccak_group_forest", "keccak_forest")
 KECCAK_SRC = "lambda_snark_tpu/ops/keccak_pallas.py:242"
 # kernels S and F (csrc/fri.cu): the counterparts of XLA device functions of
 # the JAX chain, not of Pallas kernels
-CHAIN_ENTRIES = ("transcript_absorb", "transcript_squeeze", "fri_fold")
+SPONGE_ENTRIES = ("transcript_absorb", "transcript_squeeze", "transcript_final_queries")
+FOLD_ENTRIES = ("fri_fold", "fri_fold_squeeze")
+CHAIN_ENTRIES = SPONGE_ENTRIES + FOLD_ENTRIES
 SPONGE_SRC = "lambda_snark_tpu/proof/fri_device.py:678 (_sha3_bytes_dev, DevTranscript :736)"
 FOLD_SRC = "lambda_snark_tpu/proof/fri_device.py:203 (_fold_fn; the fold of _chain_fn :782)"
+# A Keccak-f's critical path on one statement's chain: 24 rounds of about 7
+# dependent instructions (two LOP3 levels for theta's column parity, the
+# 1-bit rotate and xor of D, rho's xor and rotate, chi as one LOP3 with iota)
+# at about 4 cycles each and 1.98 GHz (the H100 SXM's boost clock)
+KECCAK_LATENCY_MS = 24 * 7 * 4 / 1.98e9 * 1e3
 
 
 def sponge_blocks(label_len: int, words: int) -> int:
@@ -474,24 +515,50 @@ def sponge_blocks(label_len: int, words: int) -> int:
     return (32 + label_len + 8 * words) // 136 + 1
 
 
+def sponge_perms(entry: str, shape, variant: str) -> int:
+    """Keccak-f permutations a statement chains in one launch of kernels S
+    or F at a recorded (entry, shape, variant): one per rate block."""
+    _s, width = shape
+    label_len = len(variant.split()[0]) if variant else 0
+    if entry == "transcript_absorb":
+        return sponge_blocks(label_len, width + int(variant.endswith(" head")))
+    if entry == "transcript_squeeze":
+        return width * sponge_blocks(label_len, 1)
+    if entry == "transcript_final_queries":  # "fri-final fri-query <count> mask <m>"
+        return sponge_blocks(label_len, width + 1) + int(variant.split()[2])
+    if entry == "fri_fold_squeeze":  # a root absorb (one block) and the squeeze
+        return 1 + int(variant == "root")
+    return 0
+
+
 def sponge_work(entry: str, shape, variant: str):
     """Bytes and ops of one kernel S launch at a recorded (entry, shape,
     variant): every state read and written once, the payload read and the
     outputs written; one Keccak-f per rate block of each statement."""
     s, width = shape
-    label_len = len(variant.split()[0])
-    if entry == "transcript_absorb":
-        words = width + int(variant.endswith(" head"))
-        return s * (64 + 8 * width), s * sponge_blocks(label_len, words) * OPS_KECCAK
-    return s * (64 + 8 * width), s * width * sponge_blocks(label_len, 1) * OPS_KECCAK
+    outs = width if entry == "transcript_squeeze" else \
+        int(variant.split()[2]) if entry == "transcript_final_queries" else 0
+    payload = 0 if entry == "transcript_squeeze" else width
+    return s * (64 + 8 * payload + 8 * outs), s * sponge_perms(entry, shape, variant) * OPS_KECCAK
 
 
-def fold_work(rows: int, n: int):
+def latency_ms(entry: str, shape, variant: str) -> float:
+    """The least time of a launch of kernel S or F bound by its chain of
+    permutations: each statement's Keccak-fs one after another."""
+    return sponge_perms(entry, shape, variant) * KECCAK_LATENCY_MS
+
+
+def fold_work(rows: int, n: int, entry: str = "fri_fold", variant: str = ""):
     """Bytes and ops of one kernel F launch over (rows, n) words: the
-    codewords, the n/2-word table and the challenges read once, the
-    (rows, n/2) output written; three products and three sums a word."""
+    codewords, the n/2-word table and the challenges (or the states and
+    roots) read once, the (rows, n/2) output (and the states) written;
+    three products and three sums a word, and the chain entry's
+    permutations."""
     half = rows * (n // 2)
-    return (rows * n + half + n // 2 + rows) * 8, half * (3 * OPS_MUL["goldilocks"] + 3 * OPS_ADD)
+    perms = sponge_perms(entry, (rows, n), variant)
+    extra = rows * (8 if entry == "fri_fold" else 64 + 32 * int(variant == "root"))
+    return ((rows * n + half + n // 2) * 8 + extra,
+            half * (3 * OPS_MUL["goldilocks"] + 3 * OPS_ADD) + rows * perms * OPS_KECCAK)
 
 
 def chain_hold(np, dev, rng, entry: str, shape, variant: str):
@@ -507,10 +574,25 @@ def chain_hold(np, dev, rng, entry: str, shape, variant: str):
         return (fri_fold.fold, fri_fold.fold_plain,
                 (words(shape, gl), words((n // 2,), gl), words((rows,), gl)),
                 fold_work(rows, n))
+    if entry == "fri_fold_squeeze":  # variant "root" from the second layer on
+        rows, n = shape
+        args = (words(shape, gl), words((n // 2,), gl), words((rows, 4)))
+        if variant == "root":
+            args += (words((rows, 4)),)
+        return (lambda *a: fri_fold.fold_squeeze(*a[:3], 7, *a[3:]),
+                lambda *a: fri_fold.fold_squeeze_plain(*a[:3], 7, *a[3:]), args,
+                fold_work(rows, n, entry, variant))
     s, width = shape
     label, *rest = variant.split()
     label = label.encode()
     state = words((s, 4))
+    if entry == "transcript_final_queries":  # "fri-final fri-query <count> mask <m>"
+        query, count, mask = rest[0].encode(), int(rest[1]), int(rest[3])
+        return (lambda st, fin: keccak.transcript_final_queries(st, label, fin, width, query, 7,
+                                                                count, mask + 1),
+                lambda st, fin: keccak.transcript_final_queries_plain(st, label, fin, width,
+                                                                      query, 7, count, mask),
+                (state, words(shape, gl)), sponge_work(entry, shape, variant))
     if entry == "transcript_absorb":
         head = width if rest == ["head"] else None
         return (lambda st, pl: keccak.transcript_absorb(st, label, pl, head),
@@ -1881,7 +1963,9 @@ def hold_path_shapes(np, torch, lst, dev, rng, hold, shapes, held, tag, ctx, num
              "keccak_forest": ("keccak.cu", KECCAK_SRC),
              "transcript_absorb": ("fri.cu", SPONGE_SRC),
              "transcript_squeeze": ("fri.cu", SPONGE_SRC),
-             "fri_fold": ("fri.cu", FOLD_SRC)}
+             "transcript_final_queries": ("fri.cu", SPONGE_SRC),
+             "fri_fold": ("fri.cu", FOLD_SRC),
+             "fri_fold_squeeze": ("fri.cu", FOLD_SRC)}
     words = lambda shape, q=gl: modarith.to_words(rng.integers(0, q, size=shape,
                                                                dtype=np.uint64), dev)
     out = []
@@ -1899,7 +1983,7 @@ def hold_path_shapes(np, torch, lst, dev, rng, hold, shapes, held, tag, ctx, num
                 held[key] = hold(label, fn, plain, (x,), work, plain_reps=1)
             elif entry in CHAIN_ENTRIES:
                 fn, plain, args, work = chain_hold(np, dev, rng, entry, shape, variant)
-                held[key] = hold(label, fn, plain, args, work, plain_reps=1)
+                held[key] = hold(label, fn, plain, args, work, plain_reps=1, graph=True)
             elif entry == "quotient_goldilocks":
                 rows, m = shape
                 plan = QuotientPlan.create(m, gl, field_psi_for(m, gl), device=dev)
@@ -2543,14 +2627,24 @@ CHAIN_SHAPES = (("k7a", 7, KIND7_M, KIND7_S, False, None),
                 ("pipelined_s64", 7, KIND7_M, 64, False, PIPE_CHUNK),
                 ("pipelined_s128", 7, KIND7_M, 128, False, PIPE_CHUNK))
 CHAIN_ORDER = (True, False, False, True, True, False)  # the switch, alternated
-SPONGE_STATEMENTS = (1, 16, 128)
+# kernel F's chain entry and kernel S's tail a batch on the chain, and
+# kernel F a batch per layer: one fri_fold_squeeze a fold layer and one
+# transcript_final_queries a chunk, and no other S or F entry; per layer one
+# fri_fold a fold layer of the unchunked batch (the gate), no S
+CHAIN_LAUNCHES = {"k7a": (7, 1, 7), "k7b": (8, 1, 8), "k7a_zk": (8, 1, 8), "agg13": (7, 1, 7),
+                  "agg13_zk": (8, 1, 8), "agg10": (4, 1, 4), "pipelined_s64": (14, 2, 7),
+                  "pipelined_s128": (28, 4, 7)}
+SPONGE_STATEMENTS = (1, 16, 32, 128)
 # kernel S's entries at the chain's default FriParams: a layer root, the
-# final polynomial (final_len 64 and its length word), a fold challenge and
-# the 30 query indices of an n0 = 2^16 codeword
+# final polynomial (final_len 64 and its length word), a fold challenge,
+# the 30 query indices of an n0 = 2^16 codeword, and the chain's tail (the
+# final polynomial's absorb and the 30 index squeezes in one launch)
 SPONGE_CALLS = (("transcript_absorb", 4, "fri-layer-root"),
                 ("transcript_absorb", 64, "fri-final head"),
                 ("transcript_squeeze", 1, "fri-fold field"),
-                ("transcript_squeeze", FRI_QUERIES, f"fri-query mask {(1 << 15) - 1}"))
+                ("transcript_squeeze", FRI_QUERIES, f"fri-query mask {(1 << 15) - 1}"),
+                ("transcript_final_queries", 64,
+                 f"fri-final fri-query {FRI_QUERIES} mask {(1 << 15) - 1}"))
 
 
 def count_syncs(torch, fn):
@@ -2571,15 +2665,15 @@ def count_syncs(torch, fn):
 
 def kernel_groups(launches: dict) -> dict:
     """Launches of kernels S, F, K and T in a run, from its per-entry counts."""
-    return {"S": launches["transcript_absorb"] + launches["transcript_squeeze"],
-            "F": launches["fri_fold"],
+    return {"S": sum(launches[e] for e in SPONGE_ENTRIES),
+            "F": sum(launches[e] for e in FOLD_ENTRIES),
             "K": sum(launches[e] for e in FOREST_ENTRIES + KECCAK_PER_LEVEL),
             "T": launches["ntt_rows"] + launches["ntt_four_step"]}
 
 
 def sponge_phase(np, torch, dev, rng, hold, held) -> None:
-    """Phase 27 (a): kernel S at S = 1, 16 and 128 statements for each of
-    its entries against its twin (``hold``) and hashlib."""
+    """Phase 27 (a): kernel S at S = 1, 16, 32 and 128 statements for each
+    of its entries against its twin (``hold``) and hashlib."""
     import hashlib
     import struct
 
@@ -2592,21 +2686,26 @@ def sponge_phase(np, torch, dev, rng, hold, held) -> None:
             fn, plain, args, work = chain_hold(np, dev, rng, entry, (s, width), variant)
             if key not in held:
                 held[key] = hold(f"phase 27 kernel S {entry} S={s} {variant}", fn, plain, args,
-                                 work, plain_reps=1)
+                                 work, plain_reps=1, graph=True)
             got = fn(*args)
             states = modarith.to_u64(args[0])
             label = variant.split()[0].encode()
             for i in range(s):
                 st = states[i].tobytes()
-                if entry == "transcript_absorb":
+                if entry != "transcript_squeeze":  # an absorb first, then any squeezes
                     payload = modarith.to_u64(args[1][i]).tobytes()
-                    head = struct.pack("<Q", width) if variant.endswith("head") else b""
-                    want = [hashlib.sha3_256(st + label + head + payload).digest()]
-                    have = [modarith.to_u64(got[i]).tobytes()]
+                    head = struct.pack("<Q", width) if variant.endswith("head") or \
+                        entry == "transcript_final_queries" else b""
+                    st = hashlib.sha3_256(st + label + head + payload).digest()
+                if entry == "transcript_absorb":
+                    want, have = [st], [modarith.to_u64(got[i]).tobytes()]
                 else:
+                    squeeze = variant.split()[1].encode() if entry != "transcript_squeeze" \
+                        else label
+                    count = int(variant.split()[2]) if entry != "transcript_squeeze" else width
                     want, have = [], []
-                    for k in range(width):
-                        st = hashlib.sha3_256(st + label + struct.pack("<Q", 7 + k)).digest()
+                    for k in range(count):
+                        st = hashlib.sha3_256(st + squeeze + struct.pack("<Q", 7 + k)).digest()
                         first = int.from_bytes(st[:8], "little")
                         want.append(first % gl if variant.endswith("field")
                                     else first & int(variant.split()[-1]))
@@ -2618,6 +2717,41 @@ def sponge_phase(np, torch, dev, rng, hold, held) -> None:
                                        "disagrees with hashlib.sha3_256")
     phase(f"phase 27 kernel S: every entry at S = {SPONGE_STATEMENTS} bit-exact against its "
           "twin and hashlib.sha3_256")
+
+
+def check_fold_squeeze(np, dev, rng, shape, with_root: bool) -> None:
+    """Kernel F's chain entry at (rows, n) against ``hashlib.sha3_256``:
+    each row's new state is SHA3-256(SHA3-256(state || fri-layer-root ||
+    root) || fri-fold || LE64(7)) (the inner hash without a root), its
+    challenge that digest's first LE64 word mod p, and the fold the twin's
+    with those challenges."""
+    import hashlib
+    import struct
+
+    import torch
+
+    from lambda_snark_tpu_torch.ops import fri_fold, modarith
+
+    gl = modarith.GOLDILOCKS
+    rows, n = shape
+    words = lambda shp, high=1 << 64: modarith.to_words(
+        rng.integers(0, high, size=shp, dtype=np.uint64, endpoint=False), dev)
+    cur, inv_x, state = words(shape, gl), words((n // 2,), gl), words((rows, 4))
+    root = words((rows, 4)) if with_root else None
+    out, new = fri_fold.fold_squeeze(cur, inv_x, state, 7, root)
+    states, cs = [], []
+    for i, st in enumerate(modarith.to_u64(state)):
+        st = st.tobytes()
+        if with_root:
+            st = hashlib.sha3_256(st + b"fri-layer-root"
+                                  + modarith.to_u64(root[i]).tobytes()).digest()
+        st = hashlib.sha3_256(st + b"fri-fold" + struct.pack("<Q", 7)).digest()
+        states.append(st)
+        cs.append(int.from_bytes(st[:8], "little") % gl)
+    want = fri_fold.fold_plain(cur, inv_x, modarith.to_words(cs, dev))
+    if [bytes(r) for r in modarith.to_u64(new)] != states or not torch.equal(out, want):
+        raise RuntimeError(f"kernel F fri_fold_squeeze {rows}x{n} root={with_root}: the states, "
+                           "challenges or words disagree with hashlib.sha3_256")
 
 
 def chain_phase(np, torch, lst, dev, rng, hold, held, smi: str):
@@ -2655,17 +2789,29 @@ def chain_phase(np, torch, lst, dev, rng, hold, held, smi: str):
                 prove = lambda: lst.prove_r1cs_succinct_aggregate(
                     r1cs, wits, ctx, seeds, zk, blinding_seeds=blinds if zk else None)
                 blobs = lambda out: [out.to_bytes()]
-            rec, outs = {}, {}
+            rec, outs, per_entry = {}, {}, {}
             for on in (True, False):
                 fri_device.DEVICE_TRANSCRIPT = on
                 prove()  # a batch after one of another shape synchronises more often
                 kernels.reset_launches()
                 outs[on], syncs = count_syncs(torch, prove)
-                launches = kernels.launches()
+                per_entry[on] = launches = kernels.launches()
                 if on:
                     shapes = dict(kernels.LAUNCHES)
                 rec["chain" if on else "per_layer"] = dict(
                     launches=kernel_groups(launches), host_syncs_per_batch=syncs, times=[])
+            folds, tails, layer_folds = CHAIN_LAUNCHES[label]
+            on, off = per_entry[True], per_entry[False]
+            want_on = {e: 0 for e in CHAIN_ENTRIES}
+            want_on.update(fri_fold_squeeze=folds, transcript_final_queries=tails)
+            want_off = {e: 0 for e in CHAIN_ENTRIES}
+            want_off.update(fri_fold=layer_folds)
+            if ({e: on[e] for e in CHAIN_ENTRIES} != want_on
+                    or {e: off[e] for e in CHAIN_ENTRIES} != want_off):
+                raise RuntimeError(f"phase 27 {label}: kernel S and F launches "
+                                   f"{nonzero({e: on[e] for e in CHAIN_ENTRIES})} on the chain, "
+                                   f"{nonzero({e: off[e] for e in CHAIN_ENTRIES})} per layer; "
+                                   f"want {nonzero(want_on)} and {nonzero(want_off)}")
             chain, per_layer, chain_out = rec["chain"], rec["per_layer"], outs[True]
             if blobs(chain_out) != blobs(outs[False]):
                 raise RuntimeError(f"phase 27 {label}: the chain and the per-layer route differ")
@@ -2705,6 +2851,21 @@ def chain_phase(np, torch, lst, dev, rng, hold, held, smi: str):
             chain_shapes = {k: v for k, v in shapes.items() if k[0] in CHAIN_ENTRIES}
             entries += hold_path_shapes(np, torch, lst, dev, rng, hold, chain_shapes, held,
                                         f"chain_{label}", ctx, 27)
+            # kernel F's chain entry with and without a root at each of its shapes
+            for entry, shape, _v in list(chain_shapes):
+                if entry != "fri_fold_squeeze":
+                    continue
+                for variant in ("", "root"):
+                    key = (entry, shape, variant)
+                    if key not in held:
+                        fn, plain, args, work = chain_hold(np, dev, rng, entry, shape, variant)
+                        held[key] = hold(f"phase 27 kernel F {entry} {'x'.join(map(str, shape))} "
+                                         f"{variant}".rstrip(), fn, plain, args, work,
+                                         plain_reps=1, graph=True)
+                        check_fold_squeeze(np, dev, rng, shape, variant == "root")
+            phase(f"phase 27 {label}: kernel S {tails} and F {folds} launches a batch as "
+                  "CHAIN_LAUNCHES; fri_fold_squeeze with and without a root at each of its "
+                  "shapes bit-exact against its twin and hashlib.sha3_256")
     finally:
         fri_device.DEVICE_TRANSCRIPT = True
 
@@ -2741,6 +2902,15 @@ def chain_phase(np, torch, lst, dev, rng, hold, held, smi: str):
     if [p.to_bytes() for p in proofs] != [p.fri.to_bytes() for p in want]:
         raise RuntimeError("phase 27: the staged chain differs from the entry point's proofs")
     record["sync_check_k7a"] = dict(dispatch_enqueue_ms=enqueue_ms, finish_host_syncs=pulls)
+    # kernels S and F at each held shape: device ms, the throughput bound
+    # (bytes or operations) and the latency bound (the chained Keccak-fs)
+    record["s_and_f_bounds"] = {
+        f"{entry} {'x'.join(map(str, shape))} {variant}".rstrip(): dict(
+            ms=r["ms"], throughput_bound_ms=r["bound_ms"], throughput_bound_by=r["bound_by"],
+            latency_bound_ms=latency_ms(entry, shape, variant),
+            bound_by="latency" if latency_ms(entry, shape, variant) > r["bound_ms"]
+            else r["bound_by"])
+        for (entry, shape, variant), r in held.items() if entry in CHAIN_ENTRIES}
     phase(f"phase 27 fri_chain_dispatch at k7a under set_sync_debug_mode('error'): no host "
           f"synchronisation ({enqueue_ms:.3f} ms to enqueue), fri_chain_finish one pull, the "
           f"FRI proofs those of prove_r1cs_succinct_batch")
@@ -2803,18 +2973,19 @@ def main() -> int:
             if any(k in fn for k in ("dft_pass", "forest_kernelILi1E", "forest_kernelILi2E",
                                      "forest_kernelILi4E", "forest_kernelILi5E",
                                      "forest_kernelILi6E", "quotient_kernel",
-                                     "ring_commit_kernel", "absorb_kernel", "squeeze_kernel",
-                                     "fold_kernel")):
+                                     "ring_commit_kernel", "sponge_kernel", "fold_kernel",
+                                     "fold_squeeze_kernel")):
                 print(f"  {name} SASS {fn}: {mix}", flush=True)
 
     rng = np.random.default_rng(SEED)
     report = {}
 
-    def hold(label: str, fn, plain, args, work, plain_reps: int = 3) -> dict:
+    def hold(label: str, fn, plain, args, work, plain_reps: int = 3, graph: bool = False) -> dict:
         """Run a kernel and its plain twin on the same card tensors, demand
         equal outputs, then time both; ``work`` is (bytes, 32-bit ops).
         With ``plain_reps=1`` the twin's time is its comparison call's,
-        between CUDA events (the twins take up to seconds a call)."""
+        between CUDA events (the twins take up to seconds a call). With
+        ``graph`` the kernel's time is ``graph_ms``'s (kernels S and F)."""
         got = fn(*args)
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         torch.cuda.synchronize()
@@ -2830,7 +3001,7 @@ def main() -> int:
                 or not all(torch.equal(g, w) for g, w in zip(got, want))):
             raise RuntimeError(f"{label} disagrees with its plain twin (max |err| {err})")
         del got, want
-        ms = cuda_ms(torch, lambda: fn(*args), 20)
+        ms = (graph_ms if graph else cuda_ms)(torch, lambda: fn(*args), 20)
         plain_ms = start.elapsed_time(end) if plain_reps == 1 else \
             cuda_ms(torch, lambda: plain(*args), plain_reps)
         bms, by = bound_ms(*work)

@@ -22,7 +22,8 @@ every other entry, a whole Merkle forest for ``keccak_forest`` and
 C entry.
 
 ``cluster_size`` picks how many blocks of a thread-block cluster kernels Q
-and R spread one row over.
+and R spread one row over; ``fold_grid`` how many blocks kernel F's chain
+entry spreads a row over.
 """
 
 from __future__ import annotations
@@ -83,10 +84,21 @@ PROTOTYPES = {
         # state in, state out, payload, words, head, has head, the label's
         # two lanes and length, statements, the stream
         "transcript_absorb": [_P, _P, _P, _I, _U64, _I, _U64, _U64, _I, _I, _P],
-        # state in, state out, out, first counter, squeezes, mask, field,
-        # the label's two lanes and length, statements, the stream
-        "transcript_squeeze": [_P, _P, _P, _U64, _I, _U64, _I, _U64, _U64, _I, _I, _P],
+        # state in, state out, out, the squeeze block's lanes (host) with the
+        # counter's lane and byte, first counter, squeezes, mask, field,
+        # statements, the stream
+        "transcript_squeeze": [_P, _P, _P, _P, _I, _I, _U64, _I, _U64, _I, _I, _P],
+        # state in, state out, out, payload, words, head, the absorb label's
+        # two lanes and length, then transcript_squeeze's block, counter,
+        # squeezes and mask, statements, the stream
+        "transcript_final_queries": [_P, _P, _P, _P, _I, _U64, _U64, _U64, _I, _P, _I, _I,
+                                     _U64, _I, _U64, _I, _P],
         "fri_fold": [_P, _P, _P, _P, _I, _I, _P],
+        # cur, 1/x, state in, root, state out, out, rows, log2 n/2, log2
+        # blocks a row, the root label's two lanes and length, the squeeze
+        # block's lanes (host), lane, byte, counter, the stream
+        "fri_fold_squeeze": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _U64, _U64, _I, _P, _I, _I,
+                             _U64, _P],
     },
 }
 
@@ -113,6 +125,23 @@ def cluster_size(rows: int, m: int, words: int) -> Optional[int]:
     while rows * c < SM_COUNT and 2 * c <= MAX_CLUSTER and 4 * c * c <= m:
         c *= 2
     return c
+
+
+FOLD_BLOCK_WORDS = 512  # outputs of one pass of a kernel F block: 256 threads, two words each
+FOLD_BLOCKS_PER_SM = 2  # fold_squeeze_kernel's __launch_bounds__ (csrc/fri.cu): 128 registers
+
+
+def fold_grid(rows: int, half: int) -> int:
+    """log2 of the blocks a row of ``fri_fold_squeeze`` (kernel F's chain
+    entry) takes over ``rows`` rows of ``half`` outputs: a block for every
+    FOLD_BLOCK_WORDS outputs (each thread two words, 16-byte loads), halved
+    until the rows' blocks fit on the card at once (FOLD_BLOCKS_PER_SM an
+    SM), so that every block's first loads are in flight while its row's
+    challenge is squeezed."""
+    blocks = max(1, half // FOLD_BLOCK_WORDS)
+    while blocks > 1 and rows * blocks > SM_COUNT * FOLD_BLOCKS_PER_SM:
+        blocks //= 2
+    return blocks.bit_length() - 1
 
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -45,8 +45,10 @@ and the arithmetic ``>>`` is masked to the bits a logical shift would give.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Tuple
 
+import numpy as np
 import torch
 
 from .. import kernels
@@ -311,37 +313,60 @@ def merkle_forest(values: torch.Tensor) -> List[torch.Tensor]:
 
 GOLDILOCKS = 18446744069414584321
 _RATE_LANES = 17  # a SHA3-256 rate block, 136 bytes
+_RATE_BYTES = 8 * _RATE_LANES
 _MAX_LABEL = 16  # label bytes: lanes 4 and 5 of the message
 
 
-def _label_lanes(label: bytes) -> Tuple[int, int]:
-    """A label's bytes as message lanes 4 and 5 (LE, zero-padded)."""
+def label_lanes(label: bytes) -> Tuple[int, int]:
+    """A transcript label's bytes as message lanes 4 and 5 (LE, zero-padded)."""
     if len(label) > _MAX_LABEL:
         raise ValueError(f"transcript label of {len(label)} bytes: at most {_MAX_LABEL}")
     padded = label.ljust(_MAX_LABEL, b"\0")
     return int.from_bytes(padded[:8], "little"), int.from_bytes(padded[8:], "little")
 
 
-def _sponge_plain(state: torch.Tensor, label: bytes, stream: torch.Tensor) -> torch.Tensor:
-    """SHA3-256(state || label || LE64(stream words)) per row: state (S, 4)
-    and stream (S, W) words -> digests (S, 4)."""
+@functools.lru_cache(maxsize=None)
+def squeeze_lanes(label: bytes) -> Tuple[np.ndarray, int, int]:
+    """The static part of a squeeze's one-block message state || label ||
+    LE64(counter): (its 17 lanes with the state lanes 0-3 and the counter
+    zero, as uint64; the counter's first lane; its byte shift in that
+    lane). The label and the padding (0x06 after the counter, 0x80 in byte
+    135) are the same for every statement and counter, so kernel S and F
+    take them once a launch and write only the state and the counter. The
+    lanes are read-only: one array serves every launch with the label."""
+    label_lanes(label)  # refuses a label longer than lanes 4 and 5
+    block = bytearray(_RATE_BYTES)
+    block[32:32 + len(label)] = label
+    block[40 + len(label)] ^= 0x06
+    block[_RATE_BYTES - 1] ^= 0x80
+    start = 32 + len(label)
+    lanes = np.frombuffer(bytes(block), dtype="<u8").astype(np.uint64)
+    lanes.flags.writeable = False
+    return lanes, start // 8, start % 8
+
+
+def _padded_lanes(state: torch.Tensor, label: bytes,
+                  stream: torch.Tensor) -> List[List[torch.Tensor]]:
+    """The padded message state || label || LE64(stream words) per row, as
+    its rate blocks of 17 lane tensors (S,): state (S, 4), stream (S, W)."""
     s, width = stream.shape
     base = 32 + len(label)  # the stream's first byte
     length = base + 8 * width
-    blocks = length // 136 + 1
-    label_lanes = _label_lanes(label)
+    blocks = length // _RATE_BYTES + 1
+    lab = label_lanes(label)
     zero = torch.zeros(s, dtype=torch.int64, device=state.device)
 
     def word(i: int) -> torch.Tensor:
         return stream[:, i] if 0 <= i < width else zero
 
-    a = [zero] * 25
+    out = []
     for b in range(blocks):
+        lanes = []
         for k in range(_RATE_LANES):
             j = b * _RATE_LANES + k
             lane = state[:, j] if j < 4 else zero
             if j in (4, 5):
-                lane = lane | _signed(label_lanes[j - 4])
+                lane = lane | _signed(lab[j - 4])
             off = 8 * j - base
             q, r = off >> 3, off & 7
             w = _shr(word(q), 8 * r) | (word(q + 1) << (64 - 8 * r)) if r else word(q)
@@ -350,8 +375,18 @@ def _sponge_plain(state: torch.Tensor, label: bytes, stream: torch.Tensor) -> to
                 lane = lane ^ _signed(0x06 << (8 * (length & 7)))
             if j == blocks * _RATE_LANES - 1:
                 lane = lane ^ _signed(0x80 << 56)
-            a[k] = a[k] ^ lane
-        a = keccak_f_plain(a)
+            lanes.append(lane)
+        out.append(lanes)
+    return out
+
+
+def _sponge_plain(state: torch.Tensor, label: bytes, stream: torch.Tensor) -> torch.Tensor:
+    """SHA3-256(state || label || LE64(stream words)) per row: state (S, 4)
+    and stream (S, W) words -> digests (S, 4)."""
+    zero = torch.zeros(state.shape[0], dtype=torch.int64, device=state.device)
+    a = [zero] * 25
+    for lanes in _padded_lanes(state, label, stream):
+        a = keccak_f_plain([x ^ y for x, y in zip(a, lanes)] + a[_RATE_LANES:])
     return torch.stack(a[:4], dim=1)
 
 
@@ -391,10 +426,30 @@ def transcript_squeeze_plain(state: torch.Tensor, label: bytes, counter: int, co
     return state, torch.stack(outs, dim=1)
 
 
+def transcript_final_queries_plain(state: torch.Tensor, final_label: bytes,
+                                   payload: torch.Tensor, head: int, query_label: bytes,
+                                   counter: int, count: int, mask: int):
+    state = transcript_absorb_plain(state, final_label, payload, head)
+    return transcript_squeeze_plain(state, query_label, counter, count, mask)
+
+
 def _check_state(state: torch.Tensor) -> None:
     _check(state, 2, "transcript state")
     if state.shape[1] != 4:
         raise ValueError(f"transcript state: expected (S, 4) words, got {tuple(state.shape)}")
+
+
+def _check_payload(state: torch.Tensor, payload) -> None:
+    if payload is not None:
+        _check(payload, 2, "transcript payload")
+        if payload.shape[0] != state.shape[0] or payload.device != state.device:
+            raise ValueError("transcript payload: one row per state, on the state's device")
+
+
+def _check_mask(bound: int, count: int) -> int:
+    if bound < 1 or bound & (bound - 1) or count < 1:
+        raise ValueError(f"index squeeze: bound {bound} must be a power of two, count >= 1")
+    return bound - 1
 
 
 def transcript_absorb(state: torch.Tensor, label: bytes, payload=None,
@@ -404,13 +459,10 @@ def transcript_absorb(state: torch.Tensor, label: bytes, payload=None,
     SHA3-256(state || label || head || payload) per statement, as
     ``FriTranscript.absorb`` (``absorb_words`` is head = the word count)."""
     _check_state(state)
-    if payload is not None:
-        _check(payload, 2, "transcript payload")
-        if payload.shape[0] != state.shape[0] or payload.device != state.device:
-            raise ValueError("transcript payload: one row per state, on the state's device")
+    _check_payload(state, payload)
     if state.device.type == "cpu":
         return transcript_absorb_plain(state, label, payload, head)
-    lo, hi = _label_lanes(label)
+    lo, hi = label_lanes(label)
     words = 0 if payload is None else payload.shape[1]
     out = torch.empty_like(state)
     rc = kernels.launch(state.device, kernels.load("fri").transcript_absorb, state.data_ptr(),
@@ -432,13 +484,12 @@ def transcript_squeeze(state: torch.Tensor, label: bytes, counter: int, count: i
     _check_state(state)
     if state.device.type == "cpu":
         return transcript_squeeze_plain(state, label, counter, count, mask)
-    lo, hi = _label_lanes(label)
+    lanes, lane, shift = squeeze_lanes(label)
     new = torch.empty_like(state)
     out = torch.empty((state.shape[0], count), dtype=torch.int64, device=state.device)
     rc = kernels.launch(state.device, kernels.load("fri").transcript_squeeze, state.data_ptr(),
-                        new.data_ptr(), out.data_ptr(), counter, count,
-                        0 if mask is None else mask, int(mask is None), lo, hi, len(label),
-                        state.shape[0])
+                        new.data_ptr(), out.data_ptr(), lanes.ctypes.data, lane, shift, counter,
+                        count, 0 if mask is None else mask, int(mask is None), state.shape[0])
     kernels.check(rc, "kernel S (transcript_squeeze)")
     variant = label.decode() + (" field" if mask is None else f" mask {mask}")
     kernels.count("transcript_squeeze", 1, (state.shape[0], count), variant)
@@ -458,6 +509,32 @@ def transcript_squeeze_indices(state: torch.Tensor, label: bytes, counter: int, 
     """``count`` squeezes in a row, counters ``counter``, ``counter`` + 1,
     ...: (the last states, the indices (S, count) in [0, bound)), as
     ``FriTranscript.challenge_indices`` for a power-of-two ``bound``."""
-    if bound < 1 or bound & (bound - 1) or count < 1:
-        raise ValueError(f"index squeeze: bound {bound} must be a power of two, count >= 1")
-    return transcript_squeeze(state, label, counter, count, bound - 1)
+    return transcript_squeeze(state, label, counter, count, _check_mask(bound, count))
+
+
+def transcript_final_queries(state: torch.Tensor, final_label: bytes, payload: torch.Tensor,
+                             head: int, query_label: bytes, counter: int, count: int,
+                             bound: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The FRI chain's tail in one launch of kernel S: absorb
+    ``final_label`` || LE64(head) || payload (S, W) (``fri-final``, its
+    length word and the final polynomials), then ``count`` index squeezes
+    of ``query_label`` from ``counter`` on, as ``transcript_absorb`` then
+    ``transcript_squeeze_indices``: (the last states, the indices)."""
+    _check_state(state)
+    _check_payload(state, payload)
+    mask = _check_mask(bound, count)
+    if state.device.type == "cpu":
+        return transcript_final_queries_plain(state, final_label, payload, head, query_label,
+                                              counter, count, mask)
+    lo, hi = label_lanes(final_label)
+    lanes, lane, shift = squeeze_lanes(query_label)
+    new = torch.empty_like(state)
+    out = torch.empty((state.shape[0], count), dtype=torch.int64, device=state.device)
+    rc = kernels.launch(state.device, kernels.load("fri").transcript_final_queries,
+                        state.data_ptr(), new.data_ptr(), out.data_ptr(), payload.data_ptr(),
+                        payload.shape[1], head, lo, hi, len(final_label), lanes.ctypes.data,
+                        lane, shift, counter, count, mask, state.shape[0])
+    kernels.check(rc, "kernel S (transcript_final_queries)")
+    kernels.count("transcript_final_queries", 1, (state.shape[0], payload.shape[1]),
+                  f"{final_label.decode()} {query_label.decode()} {count} mask {mask}")
+    return new, out

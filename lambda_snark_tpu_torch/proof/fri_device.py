@@ -4,8 +4,10 @@ the JAX package's ``proof/fri_device.py``), on both of its routes.
 - codewords stay on the device as (S, n) or (S, K, n) int64 words;
 - every Merkle forest is built there by one launch of kernel K
   (``ops.keccak.merkle_forest``), leaf level to root;
-- each fold layer is one launch of kernel F (``ops.fri_fold.fold``) with a
-  cached 1/x table;
+- each fold layer is one launch of kernel F with a cached 1/x table
+  (``ops.fri_fold.fold`` on the per-layer route; ``fold_squeeze`` on the
+  chain, where the launch also absorbs the last root and draws the
+  challenge);
 - the DEEP combination runs in torch ops (Montgomery batch inversion, with
   one host inverse per row); the aggregate (kind 8) passes its
   cross-statement lambda ladder as tables and sums the statements'
@@ -24,11 +26,13 @@ Two routes, chosen by ``DEVICE_TRANSCRIPT`` as in the JAX package:
 
 - on (the default): the single-dispatch chain (``fri_chain_dispatch``,
   ``fri_chain_finish``). The Fiat-Shamir transcripts run on the device too
-  (``DevTranscript``, kernel S): every fold challenge, layer root, the
-  final polynomial (with its degree check as a flag) and the query indices
-  stay there, so the whole commit and query phase is enqueued on one
-  stream with no host synchronisation and reaches the host once, in the
-  bundle that ``fri_chain_finish`` pulls. The host ``FriTranscript``s are
+  (``DevTranscript``): each layer's root absorb, fold challenge and fold
+  run in one launch of kernel F, and the ``fri-final`` absorb and the
+  query indices in one of kernel S; every root, the final polynomial
+  (with its degree check as a flag) and the indices stay there, so the
+  whole commit and query phase is enqueued on one stream with no host
+  synchronisation and reaches the host once, in the bundle that
+  ``fri_chain_finish`` pulls. The host ``FriTranscript``s are
   read for their seeded states and not advanced.
 - off: the per-layer route (``fri_commit_layers``, ``fri_open``): the
   transcripts stay on the host (``proof.fri.FriTranscript``), so each
@@ -42,6 +46,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -496,7 +501,8 @@ class DevTranscript:
     """Device mirror of ``FriTranscript`` for S statements in lockstep: the
     32-byte ratchet states as (S, 4) LE64 words, one static counter shared
     by all (it increments before each squeeze, as ``FriTranscript._squeeze``
-    does). Absorbs and squeezes are kernel S launches."""
+    does). A layer of the chain (``fold_layer``) is one launch of kernel F,
+    its tail (``final_and_queries``) one of kernel S."""
 
     def __init__(self, state: torch.Tensor, counter: int) -> None:
         self.state, self.counter = state, counter
@@ -514,20 +520,21 @@ class DevTranscript:
             state = state.pin_memory().to(device, non_blocking=True)
         return DevTranscript(state, counters.pop())
 
-    def absorb(self, label: bytes, payload: torch.Tensor, head=None) -> None:
-        self.state = keccak.transcript_absorb(self.state, label, payload, head)
-
-    def challenge_field(self, label: bytes) -> torch.Tensor:
-        """(S,) challenges, as ``FriTranscript.challenge_field`` over Goldilocks."""
+    def fold_layer(self, cur: torch.Tensor, inv_x: torch.Tensor, root=None) -> torch.Tensor:
+        """A layer of the chain in one launch of kernel F: absorb
+        ``fri-layer-root`` || root (the last layer's roots (S, 4), if
+        given), draw the ``fri-fold`` challenges and fold cur with them."""
         self.counter += 1
-        self.state, cs = keccak.transcript_squeeze_field(self.state, label, self.counter)
-        return cs
+        out, self.state = fri_fold.fold_squeeze(cur, inv_x, self.state, self.counter, root)
+        return out
 
-    def challenge_indices(self, bound: int, count: int, label: bytes) -> torch.Tensor:
-        """(S, count) indices, as ``FriTranscript.challenge_indices`` for a
-        power-of-two bound."""
-        self.state, idx = keccak.transcript_squeeze_indices(self.state, label, self.counter + 1,
-                                                            count, bound)
+    def final_and_queries(self, fin: torch.Tensor, bound: int, count: int) -> torch.Tensor:
+        """Absorb ``fri-final`` (the length word, then the final polynomials
+        (S, final_len)) and draw ``count`` ``fri-query`` indices below a
+        power-of-two bound, in one launch of kernel S: (S, count)."""
+        self.state, idx = keccak.transcript_final_queries(
+            self.state, b"fri-final", fin, fin.shape[1], b"fri-query", self.counter + 1, count,
+            bound)
         self.counter += count
         return idx
 
@@ -549,10 +556,11 @@ class ChainLayout:
 def fri_chain_dispatch(g: torch.Tensor, inputs, offset: int, omega: int, q: int,
                        params: FriParams, trs: Sequence[FriTranscript]):
     """Enqueue the whole FRI commit and query phase on the current stream:
-    per layer a fold challenge (kernel S), the fold (kernel F), the layer's
-    forest (kernel K) and its root absorbed (kernel S); the final
-    polynomials (kernel T) with their degree flags, ``fri-final`` absorbed,
-    the query indices drawn (kernel S), and every opening gathered.
+    per layer one launch of kernel F (the last layer's root absorbed, the
+    fold challenge drawn, the fold) and the layer's forest (kernel K); the
+    final polynomials (kernel T) with their degree flags, then one launch
+    of kernel S (``fri-final`` absorbed, the query indices drawn), and every
+    opening gathered.
     Returns (bundle, layout): the bundle a flat device tensor of words that
     nothing has pulled, the layout static (``ChainLayout``). Nothing here
     waits for the device once the tables of the shape are cached (their
@@ -572,23 +580,20 @@ def fri_chain_dispatch(g: torch.Tensor, inputs, offset: int, omega: int, q: int,
     layers, roots = [], []
     cur = g.contiguous()
     off, om, d = offset, omega, d_bound
-    layer = 0
-    while True:
-        cur = fri_fold.fold(cur, tabs[layer], tr.challenge_field(b"fri-fold"))
-        layer += 1
+    root = None
+    for layer in itertools.count():
+        cur = tr.fold_layer(cur, tabs[layer], root)
         off, om, d = off * off % P, om * om % P, d >> 1
         if d <= final_len:
             break
         levels = keccak.merkle_forest(cur)
         root = levels[-1].reshape(s, 4)
-        tr.absorb(b"fri-layer-root", root)
         layers.append((cur, levels))
         roots.append(root)
     fin = _final_coefficients(cur, off, om)
     over = (fin[:, final_len:] != 0).any(dim=1)
     fin = fin[:, :final_len].contiguous()
-    tr.absorb(b"fri-final", fin, head=final_len)
-    idx = tr.challenge_indices(n0 // 2, params.num_queries, b"fri-query")
+    idx = tr.final_and_queries(fin, n0 // 2, params.num_queries)
     parts, specs, depths = _open_parts(inputs, layers, idx)
     head = [torch.stack(roots) if roots else g.new_zeros((0, s, 4)), fin,
             over.to(torch.int64)]

@@ -205,26 +205,26 @@ def test_absorb_twin_equals_hashlib(label, words, head):
 
 def test_absorb_twin_equals_fri_transcript():
     trs = _transcripts([b"p", b"q"])
-    dev = fri_device.DevTranscript.upload(trs, "cpu")
+    state = fri_device.DevTranscript.upload(trs, "cpu").state
     rng = np.random.default_rng(4)
     roots = rng.integers(0, 1 << 64, size=(2, 4), dtype=np.uint64, endpoint=False)
     fins = rng.integers(0, P, size=(2, 4), dtype=np.uint64)
-    dev.absorb(b"fri-layer-root", modarith.to_words(roots))
-    dev.absorb(b"fri-final", modarith.to_words(fins), head=4)
+    state = keccak.transcript_absorb(state, b"fri-layer-root", modarith.to_words(roots))
+    state = keccak.transcript_absorb(state, b"fri-final", modarith.to_words(fins), 4)
     for i, tr in enumerate(trs):
         tr.absorb(b"fri-layer-root", roots[i].tobytes())
         tr.absorb_words(b"fri-final", [int(v) for v in fins[i]])
-        assert modarith.to_u64(dev.state)[i].tobytes() == tr._state
+        assert modarith.to_u64(state)[i].tobytes() == tr._state
 
 
 def test_squeeze_field_twin_equals_challenge_field():
     trs = _transcripts([b"f0", b"f1", b"f2"])
-    dev = fri_device.DevTranscript.upload(trs, "cpu")
-    for _ in range(8):
-        got = modarith.to_u64(dev.challenge_field(b"fri-fold")).tolist()
-        assert got == [tr.challenge_field(P, b"fri-fold") for tr in trs]
-    assert dev.counter == trs[0]._counter
-    assert [s.tobytes() for s in modarith.to_u64(dev.state)] == [tr._state for tr in trs]
+    state = fri_device.DevTranscript.upload(trs, "cpu").state
+    for counter in range(1, 9):
+        state, cs = keccak.transcript_squeeze_field(state, b"fri-fold", counter)
+        assert modarith.to_u64(cs).tolist() == [tr.challenge_field(P, b"fri-fold") for tr in trs]
+    assert trs[0]._counter == 8
+    assert [s.tobytes() for s in modarith.to_u64(state)] == [tr._state for tr in trs]
 
 
 @pytest.mark.parametrize("bound,count", [(1 << 5, 30), (1 << 15, 30), (1, 3)])
@@ -232,10 +232,46 @@ def test_squeeze_indices_twin_equals_challenge_indices(bound, count):
     trs = _transcripts([b"i0", b"i1"])
     for tr in trs:
         tr.challenge_field(P, b"fri-fold")
+    state = fri_device.DevTranscript.upload(trs, "cpu").state
+    state, idx = keccak.transcript_squeeze_indices(state, b"fri-query", 2, count, bound)
+    assert idx.tolist() == [tr.challenge_indices(bound, count, b"fri-query") for tr in trs]
+    assert trs[0]._counter == 1 + count
+    assert [s.tobytes() for s in modarith.to_u64(state)] == [tr._state for tr in trs]
+
+
+@pytest.mark.parametrize("with_root", [False, True])
+def test_fold_layer_equals_fri_transcript(with_root):
+    trs = _transcripts([b"l0", b"l1", b"l2"])
+    for tr in trs:
+        tr.challenge_field(P, b"fri-fold")
     dev = fri_device.DevTranscript.upload(trs, "cpu")
-    got = dev.challenge_indices(bound, count, b"fri-query").tolist()
-    assert got == [tr.challenge_indices(bound, count, b"fri-query") for tr in trs]
-    assert dev.counter == trs[0]._counter
+    rng = np.random.default_rng(5)
+    cur = modarith.to_words(rng.integers(0, P, size=(3, 16), dtype=np.uint64))
+    inv_x = modarith.to_words(rng.integers(0, P, size=8, dtype=np.uint64))
+    roots = rng.integers(0, 1 << 64, size=(3, 4), dtype=np.uint64, endpoint=False)
+    out = dev.fold_layer(cur, inv_x, modarith.to_words(roots) if with_root else None)
+    cs = []
+    for i, tr in enumerate(trs):
+        if with_root:
+            tr.absorb(b"fri-layer-root", roots[i].tobytes())
+        cs.append(tr.challenge_field(P, b"fri-fold"))
+    assert torch.equal(out, fri_fold.fold_plain(cur, inv_x, modarith.to_words(cs)))
+    assert dev.counter == trs[0]._counter == 2
+    assert [s.tobytes() for s in modarith.to_u64(dev.state)] == [tr._state for tr in trs]
+
+
+@pytest.mark.parametrize("bound,count", [(1 << 5, 30), (1, 3)])
+def test_final_and_queries_equals_fri_transcript(bound, count):
+    trs = _transcripts([b"t0", b"t1"])
+    for tr in trs:
+        tr.challenge_field(P, b"fri-fold")
+    dev = fri_device.DevTranscript.upload(trs, "cpu")
+    fins = np.random.default_rng(6).integers(0, P, size=(2, 4), dtype=np.uint64)
+    idx = dev.final_and_queries(modarith.to_words(fins), bound, count)
+    for tr, fin in zip(trs, fins):
+        tr.absorb_words(b"fri-final", [int(v) for v in fin])
+    assert idx.tolist() == [tr.challenge_indices(bound, count, b"fri-query") for tr in trs]
+    assert dev.counter == trs[0]._counter == 1 + count
     assert [s.tobytes() for s in modarith.to_u64(dev.state)] == [tr._state for tr in trs]
 
 
@@ -382,14 +418,16 @@ def test_pipelined_gate_needs_the_device_transcript(kind7, monkeypatch):
 
 @pytest.mark.cuda
 def test_kernels_s_and_f_match_their_twins_on_card():
-    """Kernel S (every entry, S = 1, 16, 128) and kernel F (the fold shapes
-    of a k7a batch) against their twins on the card (run with ``python -m
+    """Kernel S (every entry, S = 1, 16, 32, 128, the chain's tail among
+    them) and kernel F (the fold with given challenges at kind 9's and the
+    chain's shapes, and its chain entry with and without a root at the
+    chain's shapes) against their twins on the card (run with ``python -m
     pytest tests/test_torch_fri_chain.py -m cuda --noconftest -q``)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     rng = np.random.default_rng(21)
     dev = torch.device("cuda")
-    for s in (1, 16, 128):
+    for s in (1, 16, 32, 128):
         state = _states(rng, s).to(dev)
         root = modarith.to_words(rng.integers(0, 1 << 64, size=(s, 4), dtype=np.uint64,
                                               endpoint=False), dev)
@@ -401,13 +439,26 @@ def test_kernels_s_and_f_match_their_twins_on_card():
                  keccak.transcript_absorb_plain(state, b"fri-final", fin, 64)),
                 (keccak.transcript_squeeze_field(state, b"fri-fold", 3),
                  keccak.transcript_squeeze_plain(state, b"fri-fold", 3, 1)),
+                (keccak.transcript_squeeze_field(state, b"fri-fold", (1 << 32) - 1),
+                 keccak.transcript_squeeze_plain(state, b"fri-fold", (1 << 32) - 1, 1)),
                 (keccak.transcript_squeeze_indices(state, b"fri-query", 9, 30, 1 << 15),
-                 keccak.transcript_squeeze_plain(state, b"fri-query", 9, 30, (1 << 15) - 1))):
+                 keccak.transcript_squeeze_plain(state, b"fri-query", 9, 30, (1 << 15) - 1)),
+                (keccak.transcript_final_queries(state, b"fri-final", fin, 64, b"fri-query", 255,
+                                                 30, 1 << 15),
+                 keccak.transcript_final_queries_plain(state, b"fri-final", fin, 64, b"fri-query",
+                                                       255, 30, (1 << 15) - 1))):
             got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
             assert torch.equal(got[0], want[0])
             assert torch.equal(got[-1].reshape(-1), want[-1].reshape(-1))
-    for n in (1 << 16, 1 << 13, 1 << 10):
-        cur = modarith.to_words(rng.integers(0, P, size=(16, n), dtype=np.uint64), dev)
-        inv_x = modarith.to_words(rng.integers(0, P, size=n // 2, dtype=np.uint64), dev)
-        cs = modarith.to_words(rng.integers(0, P, size=16, dtype=np.uint64), dev)
+    words = lambda shape, high=P: modarith.to_words(
+        rng.integers(0, high, size=shape, dtype=np.uint64, endpoint=False), dev)
+    for rows, n in ((16, 1 << 16), (16, 1 << 13), (16, 1 << 10), (16, 1 << 17), (1, 1 << 16),
+                    (1, 1 << 10), (128, 1 << 13), (32, 1 << 16), (1, 1 << 18), (1, 1 << 19),
+                    (2, 2), (3, 8)):
+        cur, inv_x, cs = words((rows, n)), words((n // 2,)), words((rows,))
+        state, root = words((rows, 4), 1 << 64), words((rows, 4), 1 << 64)
         assert torch.equal(fri_fold.fold(cur, inv_x, cs), fri_fold.fold_plain(cur, inv_x, cs))
+        for r in (None, root):
+            got = fri_fold.fold_squeeze(cur, inv_x, state, 7, r)
+            want = fri_fold.fold_squeeze_plain(cur, inv_x, state, 7, r)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
