@@ -190,13 +190,26 @@ Phases, each printing one flushed line with the seconds since start:
     device time (CUDA events around a CUDA graph of 20 captured calls:
     their wrappers' enqueue outlasts them), and each S and F shape gets a
     latency bound beside its throughput bound (the ``fri_chain`` line);
+28. the port's examples (``examples/torch_*.py``) and last public names:
+    each example's ``main`` on the card (batched kinds 2/3 with the store
+    and a compact proof; the stream and ``ShardedProofService`` with resume
+    on a (2, 2) mesh of four ranks sharing the card over gloo; base,
+    succinct and ZK-succinct proofs at m = 2^10), its assertions, its
+    launches (kernels Q, R, K and T each launched by the three) and bytes
+    equal to its ``--device cpu`` run; ``commit.lwe.randomness_batch`` on
+    the multi-key ChaCha20 blocks against the per-seed loop at n = 4096,
+    k = 2, S = 256 (equal draws; both host times, medians of three in
+    turns); kind 7 at m = 2^10, S = 2 with ``proof.succinct.GL_FAST_FRONTEND``
+    off (the host route) with the device route's bytes, and the switch on
+    again after;
 
 then the JSON lines: kind 7 at m = 2^13 (proofs/s, breakdown, idle share),
 kind 7 at m = 2^14, the streams, ZK kind 7, the pipelined prover, the
 kind-7 stream, the host path, kind 8 (one line per shape), the host routes,
 kind 9, the command line, the multi-device layer (per-leg seconds, step
 times, launches, the service's proofs/s), the FRI chain against the
-per-layer route per shape, and the ``kernels`` line: for each kernel
+per-layer route per shape, the examples and names of phase 28, and the
+``kernels`` line: for each kernel
 on each path its time, its plain twin's time, its bound and its launches in
 that path's run, counted per C entry (the four-step NTT's entry launches
 two kernels, one per pass) and, for kernels K and T on the m = 2^14 kind-7
@@ -2917,6 +2930,125 @@ def chain_phase(np, torch, lst, dev, rng, hold, held, smi: str):
     return entries, record
 
 
+# the port's examples and last public names (28): the three examples of
+# ``examples/torch_*.py`` on the card against a CPU run, ``randomness_batch``
+# on the multi-key ChaCha20 blocks against the per-seed loop at the
+# kinds-2/3 width, and kind 7 with ``GL_FAST_FRONTEND`` off
+EXAMPLES = {  # example -> the kernels (by source) its path must launch
+    "torch_batch_proving": ("Q", "R"),
+    "torch_proof_service": ("Q", "R", "T"),
+    "torch_succinct_openings": ("Q", "R", "K", "T", "S", "F"),
+}
+RANDOMNESS_SEEDS, RANDOMNESS_REPS = 256, 3
+GL_OFF_M, GL_OFF_S = 1 << 10, 2
+
+
+def source_groups(kernels, launches: dict) -> dict:
+    """Launches of kernels Q, R, K, T, S and F in a run, from its per-entry
+    counts (Q, R, K and T by source file, S and F by entry)."""
+    by_file = lambda name: sum(launches.get(e, 0) for e in kernels.PROTOTYPES[name])
+    return {"Q": by_file("quotient"), "R": by_file("ring_commit"), "K": by_file("keccak"),
+            "T": by_file("ntt"), "S": sum(launches.get(e, 0) for e in SPONGE_ENTRIES),
+            "F": sum(launches.get(e, 0) for e in FOLD_ENTRIES)}
+
+
+def examples_phase(np, torch, lst, rng, smi: str) -> dict:
+    """Phase 28: the three examples' ``main`` on the card (each asserts what
+    the JAX package's example asserts; the proof service's four ranks share
+    the card over gloo) with the launches of each run, the same ``main``
+    with ``--device cpu`` (equal bytes); ``randomness_batch`` against the
+    per-seed loop at n = 4096, k = 2, S = 256 (equal draws, host times);
+    kind 7 at m = 2^10, S = 2 with ``GL_FAST_FRONTEND`` off (the host
+    route) against the device route (equal bytes), the switch on again
+    after. Returns the record."""
+    import importlib
+
+    from lambda_snark_tpu_torch import kernels
+    from lambda_snark_tpu_torch.commit import lwe
+    from lambda_snark_tpu_torch.proof import succinct
+
+    record = {"examples": {}}
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples"))
+    total = {}
+    for name, needed in EXAMPLES.items():
+        mod = importlib.import_module(name)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t = time.time()
+        card = mod.main([])
+        torch.cuda.synchronize()
+        elapsed = time.time() - t
+        launches = kernels.launches()
+        for rank in card.get("rank_launches", []):
+            launches = {e: n + rank.get(e, 0) for e, n in launches.items()}
+        groups = source_groups(kernels, launches)
+        if [g for g in needed if groups[g] < 1]:
+            raise RuntimeError(f"28: {name} did not launch each of {needed}: {groups}")
+        cpu = mod.main(["--device", "cpu"])
+        for key, value in card.items():
+            if key not in ("seconds", "rank_launches") and value != cpu[key]:
+                raise RuntimeError(f"28: {name}'s {key} on the card differs from the CPU run")
+        total = {g: total.get(g, 0) + n for g, n in groups.items()}
+        record["examples"][name] = dict(end_to_end_s=elapsed, launches=nonzero(launches),
+                                        kernels=groups, reported_s=card.get("seconds"))
+        phase(f"phase 28 {name}: its assertions held on the card and its bytes equal a "
+              f"--device cpu run; launches {groups}; {elapsed:.3f} s end to end "
+              f"(host clock; {smi})")
+    if [g for g in ("Q", "R", "K", "T") if total[g] < 1]:
+        raise RuntimeError(f"28: the examples did not launch each of Q, R, K and T: {total}")
+
+    ctx = sharded_context(lst)
+    seeds = [int(x) for x in rng.integers(0, 1 << 63, size=RANDOMNESS_SEEDS)]
+    times = {"batched": [], "per_seed": []}
+    for rep in range(RANDOMNESS_REPS):
+        for route in (("batched", "per_seed") if rep % 2 == 0 else ("per_seed", "batched")):
+            t = time.perf_counter()
+            if route == "batched":
+                ss, es = lwe.randomness_batch(ctx, seeds)
+            else:
+                draws = [ctx._randomness(seed) for seed in seeds]
+            times[route].append(time.perf_counter() - t)
+    if not (np.array_equal(ss, np.stack([d[0] for d in draws]))
+            and np.array_equal(es, np.stack([d[1] for d in draws]))):
+        raise RuntimeError("28: randomness_batch differs from the per-seed loop")
+    med = {route: sorted(v)[len(v) // 2] for route, v in times.items()}
+    record["randomness_batch"] = dict(n=ctx.n, k=ctx.k, seeds=RANDOMNESS_SEEDS,
+                                      host_s=times, median_s=med)
+    phase(f"phase 28 randomness_batch n={ctx.n} k={ctx.k} S={RANDOMNESS_SEEDS}: draws equal "
+          f"the per-seed loop's; host medians of {RANDOMNESS_REPS} in turns: multi-key blocks "
+          f"{med['batched']:.4f} s, per-seed loop {med['per_seed']:.4f} s (host times of the "
+          f"card's machine)")
+
+    r1cs = kind7_circuit(lst, GL_OFF_M)
+    ctx7 = kind7_context(lst, GL_OFF_M)
+    ws = [[int(v) for v in row] for row in kind7_witnesses(np, lst, torch.device("cuda"), rng,
+                                                            GL_OFF_S, GL_OFF_M)]
+    seeds7 = list(range(1, GL_OFF_S + 1))
+    device_route = lst.prove_r1cs_succinct_batch(r1cs, ws, ctx7, seeds7)
+    kernels.reset_launches()
+    succinct.GL_FAST_FRONTEND = False
+    try:
+        t = time.time()
+        host_route = lst.prove_r1cs_succinct_batch(r1cs, ws, ctx7, seeds7)
+        host_s = time.time() - t
+    finally:
+        succinct.GL_FAST_FRONTEND = True
+    host_launches = kernels.launches()
+    if succinct.GL_FAST_FRONTEND is not True:
+        raise RuntimeError("28: GL_FAST_FRONTEND is not back on")
+    if [p.to_bytes() for p in host_route] != [p.to_bytes() for p in device_route]:
+        raise RuntimeError("28: kind 7 with GL_FAST_FRONTEND off differs from the device route")
+    for w, p in zip(ws, host_route):
+        if not lst.verify_r1cs_succinct(p, r1cs.public_inputs(w), r1cs):
+            raise RuntimeError("28: a host-route kind-7 proof does not verify")
+    record["gl_fast_frontend_off"] = dict(m=GL_OFF_M, s=GL_OFF_S, host_s=host_s,
+                                          launches=nonzero(host_launches))
+    phase(f"phase 28 kind 7 m={GL_OFF_M} S={GL_OFF_S} with GL_FAST_FRONTEND off: the host "
+          f"route's bytes equal the device route's, every proof verifies, {host_s:.3f} s "
+          f"(host clock), launches {nonzero(host_launches)}; the switch is on again")
+    return record
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3279,6 +3411,7 @@ def main() -> int:
     entries += md_entries
     chain_entries, chain_record = chain_phase(np, torch, lst, dev, rng, hold, held, smi)
     entries += chain_entries
+    examples_record = examples_phase(np, torch, lst, rng, smi)
     print(json.dumps({"kind7": kind7}), flush=True)
     print(json.dumps({"kind7_2pow14": kind7_long, "launches_kind7_2pow14": k7_long,
                       "shape_launches_kind7_2pow14": [
@@ -3301,6 +3434,7 @@ def main() -> int:
     print(json.dumps({"cli": cli_record}), flush=True)
     print(json.dumps({"multidevice": multidevice}), flush=True)
     print(json.dumps({"fri_chain": chain_record}), flush=True)
+    print(json.dumps({"examples_and_names": examples_record}), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)

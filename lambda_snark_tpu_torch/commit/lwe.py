@@ -31,9 +31,12 @@ from ..core.errors import CommitmentError, InvalidInputError
 from ..core.params import NTT_MODULUS, NTT_PRIMITIVE_ROOT, Params
 from ..ops import gaussian, modarith
 from ..ops.ntt import NttPlan, ntt_forward_negacyclic, ntt_inverse_negacyclic
-from ..utils.chacha import ChaCha20Rng
+from ..utils.chacha import ChaCha20Rng, chacha20_blocks_keys_np
 
 RING_MODULUS = NTT_MODULUS
+
+#: The ring's modulus under the JAX package's name for it.
+GOLDILOCKS = NTT_MODULUS
 
 _DOMAIN_A = b"LSNARK-TPU/A/v1"
 _DOMAIN_RAND = b"LSNARK-TPU/rand/v1"
@@ -275,9 +278,17 @@ def randomness_keys(ctx: LweContext, seeds) -> np.ndarray:
 
 def randomness_batch(ctx: LweContext, seeds: Sequence[int]):
     """(ss (S, k, n), es (S, n)) int64: ``ctx._randomness`` of each seed,
-    drawn on the host (the device route, ``ops.sampler``, gives the same
-    draws)."""
-    if len(seeds) == 0:
-        return np.empty((0, ctx.k, ctx.n), np.int64), np.empty((0, ctx.n), np.int64)
-    draws = [ctx._randomness(seed) for seed in seeds]
-    return np.stack([s for s, _e in draws]), np.stack([e for _s, e in draws])
+    draw for draw, on the host from one multi-key block call (each seed's
+    stream is its first 4 n (k + 1) keystream words; the device route,
+    ``ops.sampler``, gives the same draws)."""
+    s_count, n, k = len(seeds), ctx.n, ctx.k
+    total_words = 4 * n * (k + 1)  # 2 n u64 draws a row, k rows of s, then e
+    nblocks = -(-total_words // 16)
+    blocks = chacha20_blocks_keys_np(randomness_keys(ctx, seeds), 0, [0, 0], nblocks)
+    w = blocks.reshape(s_count, 16 * nblocks)[:, :total_words].astype(np.uint64)
+    draws = (w[:, 0::2] | (w[:, 1::2] << np.uint64(32))).reshape(s_count, k + 1, 2 * n)
+    mags = gaussian.magnitudes_from_uniforms(draws[..., 0::2].reshape(-1), ctx.cdf)
+    mags = mags.astype(np.int64).reshape(s_count, k + 1, n)
+    flip = ((draws[..., 1::2] & np.uint64(1)) == 1) & (mags != 0)
+    signed = np.where(flip, -mags, mags)
+    return signed[:, :k], signed[:, k]

@@ -7,7 +7,7 @@ that has no inverse). Tensor arithmetic lives in ``ops.modarith``.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 MASK64 = (1 << 64) - 1
 
@@ -52,6 +52,11 @@ def mod_inverse(value: int, modulus: int) -> Optional[int]:
         return pow(reduced, -1, modulus)
     except ValueError:
         return None
+
+
+def vec_mod(values, modulus: int) -> List[int]:
+    """Each element mod ``modulus``, by Python's ``%`` (negatives wrap up)."""
+    return [v % modulus for v in values]
 
 
 def horner_eval(coeffs: Sequence[int], x: int, modulus: int) -> int:

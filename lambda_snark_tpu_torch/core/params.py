@@ -36,6 +36,9 @@ NTT_FRIENDLY_MODULUS = 17592169062401
 #: Healthcare dump prime 2^31 - 2^27 + 1 (2-adicity 27).
 HEALTHCARE_DUMP_MODULUS = 2013265921
 
+#: The toy specification modulus of the reference command line.
+TOY_MODULUS = 12289
+
 #: Primitive m-th roots of unity mod NTT_FRIENDLY_MODULUS (generator 3).
 ROOTS_OF_UNITY_45BIT = {
     4: 981206394875,
@@ -61,13 +64,18 @@ class SecurityLevel(enum.IntEnum):
 
 @dataclasses.dataclass(frozen=True)
 class Profile:
-    """Commitment profile; the commitment context takes ``ring_b`` (n, k, q, sigma)."""
+    """Commitment profile: ``scalar_a`` (q, sigma) or ``ring_b`` (n, k, q,
+    sigma); the commitment context takes ``ring_b`` only."""
 
     kind: str
     q: int
     sigma: float
     n: int = 0
     k: int = 0
+
+    @staticmethod
+    def scalar_a(q: int, sigma: float) -> "Profile":
+        return Profile(kind="scalar_a", q=q, sigma=sigma)
 
     @staticmethod
     def ring_b(n: int, k: int, q: int, sigma: float) -> "Profile":

@@ -122,23 +122,23 @@ def build_dir(cxx: str, flags: Sequence[str]) -> str:
     return os.path.join(BUILD_ROOT, h.hexdigest()[:16])
 
 
-def build() -> str:
-    """Compile the library if it is not built yet; return its path. Raises
-    RuntimeError where there is no C++ compiler or the build fails (with
-    the compiler's output)."""
+def build(force: bool = False) -> str:
+    """Compile the library if it is not built yet, or again with
+    ``force=True``; return its path. Raises RuntimeError where there is no
+    C++ compiler or the build fails (with the compiler's output)."""
     cxx = compiler()
     if cxx is None:
         raise RuntimeError("no C++ compiler found (g++ or c++ on PATH, or $CXX)")
     flags = _flags(cxx)
     out_dir = build_dir(cxx, flags)
     path = os.path.join(out_dir, LIB_NAME)
-    if os.path.exists(path):
+    if os.path.exists(path) and not force:
         return path
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         try:
-            if os.path.exists(path):  # another process built it meanwhile
+            if os.path.exists(path) and not force:  # another process built it meanwhile
                 return path
             tmp = f"{path}.{os.getpid()}.tmp"
             cmd = [cxx, *flags, "-I", os.path.join(NATIVE_DIR, "include"), "-o", tmp,

@@ -119,6 +119,17 @@ def sub_mod(a: torch.Tensor, b: torch.Tensor, q: int) -> torch.Tensor:
     return join(torch.where(neg, ph, hi), torch.where(neg, pl & M32, lo))
 
 
+def reduce_mod(a: torch.Tensor, q: int) -> torch.Tensor:
+    """The canonical residues mod q of words holding any value below 2^64
+    (the JAX package's ``reduce_mod`` canonicalises values below 3q)."""
+    check_modulus(q)
+    hi, lo = split(a)
+    zero = torch.zeros_like(lo)
+    if q == GOLDILOCKS:
+        return _reduce_goldilocks([lo, hi, zero, zero])
+    return _reduce_small([lo, hi, zero], q)
+
+
 def _reduce_goldilocks(t: Sequence[torch.Tensor]) -> torch.Tensor:
     """t0 + t1 2^32 + t2 2^64 + t3 2^96 mod p, using 2^64 = 2^32 - 1 and
     2^96 = -1: the value is (t1 + t2) 2^32 + (t0 - t2 - t3)."""

@@ -26,29 +26,41 @@ from ..device import resolve
 
 
 def make_mesh(axis_sizes: Sequence[int], axis_names: Sequence[str] = ("dp", "sp"),
-              device="cuda") -> DeviceMesh:
+              device="cuda", devices: Optional[Sequence[int]] = None) -> DeviceMesh:
     """A mesh of the given shape over the initialised world (ranks in
-    row-major order, the last axis fastest) on ``device``'s type."""
+    row-major order, the last axis fastest) on ``device``'s type.
+    ``devices``, the JAX package's keyword, lists what the mesh is laid
+    over, of which it takes the first ones: here the world's ranks, which
+    must come in order, since each group of a torch ``DeviceMesh`` orders
+    its members by rank."""
     dev = resolve(device)
     if not dist.is_initialized():
         raise RuntimeError("no process group: call parallel.multihost.initialize_multihost "
                            "(or run under parallel.multihost.spawn_local) first")
     total = math.prod(axis_sizes)
     world = dist.get_world_size()
-    if total > world:
-        raise ValueError(f"need {total} ranks, have {world}")
+    ranks = list(range(world)) if devices is None else [int(r) for r in devices]
+    if total > len(ranks):
+        raise ValueError(f"need {total} ranks, have {len(ranks)}")
     if total < world:
         raise ValueError(f"a mesh of {total} ranks must span the world of {world}")
+    if ranks[:total] != list(range(world)):
+        raise ValueError(f"devices {ranks[:total]} must be the world's ranks in order, "
+                         f"0 to {world - 1}")
     return init_device_mesh(dev.type, tuple(axis_sizes), mesh_dim_names=tuple(axis_names))
 
 
-def ring_mesh(n: Optional[int] = None, name: str = "sp", device="cuda") -> DeviceMesh:
-    """1-D mesh over the ring/coefficient axis (the whole world by default)."""
+def ring_mesh(n: Optional[int] = None, name: str = "sp", device="cuda",
+              n_devices: Optional[int] = None) -> DeviceMesh:
+    """1-D mesh over the ring/coefficient axis of ``n`` ranks (or
+    ``n_devices``, the JAX package's keyword; the whole world by default)."""
     resolve(device)
+    if n is not None and n_devices is not None and n != n_devices:
+        raise ValueError(f"n={n} and n_devices={n_devices} disagree")
     if not dist.is_initialized():
         raise RuntimeError("no process group: call parallel.multihost.initialize_multihost "
                            "(or run under parallel.multihost.spawn_local) first")
-    return make_mesh([n or dist.get_world_size()], [name], device)
+    return make_mesh([n or n_devices or dist.get_world_size()], [name], device)
 
 
 def mesh_device(mesh: DeviceMesh) -> torch.device:

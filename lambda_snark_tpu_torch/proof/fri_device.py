@@ -54,6 +54,7 @@ import torch
 
 from ..core import field
 from ..core.errors import DomainError
+from ..core.params import NTT_MODULUS
 from ..ops import fri_fold, keccak, modarith
 from ..ops.ntt import NttPlan
 from ..ops.ntt_batched import ntt_forward_batched
@@ -69,7 +70,7 @@ from .fri import (
     _gl_powers,
 )
 
-P = modarith.GOLDILOCKS
+P = NTT_MODULUS
 
 
 def _words(values, device) -> torch.Tensor:

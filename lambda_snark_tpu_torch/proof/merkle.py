@@ -64,6 +64,13 @@ class MerkleTree:
         ).reshape(n, HASH_BYTES)
         self._levels = _finish_levels([level0])
 
+    @classmethod
+    def from_u64_pairs(cls, v_lo: np.ndarray, v_hi: np.ndarray) -> "MerkleTree":
+        """The tree over leaves pack("<QQ", v_lo[i], v_hi[i]), as
+        ``MerkleTree`` of those leaves gives it."""
+        return build_forest_u64_pairs(np.asarray(v_lo, dtype=np.uint64)[None],
+                                      np.asarray(v_hi, dtype=np.uint64)[None])[0]
+
     @property
     def root(self) -> bytes:
         return self._levels[-1][0].tobytes()

@@ -236,11 +236,20 @@ def _check_instance(r1cs: R1CS, params: FriParams, mask_len: int) -> Tuple[int, 
     return d_bound, n0, root_of_order(q, n0)
 
 
+#: Whether Goldilocks roots-domain circuits take the device route (the JAX
+#: package's switch of the same name, read at every call). Off, kinds 7 and
+#: 9 prove them on the host route with the same bytes, and kind 8 raises.
+GL_FAST_FRONTEND = True
+
+
 def _gl_frontend_applicable(r1cs: R1CS) -> bool:
-    """Whether the circuit takes the device route: Goldilocks, on the roots
-    domain of a power of two m >= 2 with omega = root_of_order(q, m)."""
+    """Whether the circuit takes the device route: ``GL_FAST_FRONTEND`` on,
+    Goldilocks, on the roots domain of a power of two m >= 2 with
+    omega = root_of_order(q, m)."""
     m = r1cs.m
-    if r1cs.modulus != GOLDILOCKS or r1cs.domain.kind != ROOTS or m & (m - 1) or m < 2:
+    if not GL_FAST_FRONTEND or r1cs.modulus != GOLDILOCKS or r1cs.domain.kind != ROOTS:
+        return False
+    if m & (m - 1) or m < 2:
         return False
     return root_of_order(GOLDILOCKS, m) == r1cs.domain.omega % GOLDILOCKS
 

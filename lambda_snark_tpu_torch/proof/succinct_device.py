@@ -41,6 +41,7 @@ import torch
 from ..commit.lwe import Commitment, LweContext, commit_batch
 from ..commit.lwe_device import DeviceCommitContext, commit_batch_chacha
 from ..core.errors import InvalidWitnessError
+from ..core.params import NTT_MODULUS, NTT_PRIMITIVE_ROOT  # noqa: F401 (the JAX module's names)
 from ..ops import modarith
 from ..ops.ntt import NttPlan
 from ..ops.ntt_batched import ntt_forward_batched, ntt_inverse_batched
@@ -51,7 +52,7 @@ from .fri import root_of_order
 from .succinct import _gl_trim
 from .fri_device import DevForest, forest_from_levels, group_forest_levels
 
-P = modarith.GOLDILOCKS
+P = NTT_MODULUS
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

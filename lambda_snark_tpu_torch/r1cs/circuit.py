@@ -1,5 +1,4 @@
-"""Circuit builder (the port's copy of ``r1cs/circuit.py``, the parts the
-example circuits use)."""
+"""Circuit builder (the port's copy of ``r1cs/circuit.py``)."""
 
 from __future__ import annotations
 
@@ -45,6 +44,22 @@ class CircuitBuilder:
     def mul_gate(self, x: int, y: int, out: int) -> None:
         """x * y = out."""
         self.add_constraint([(x, 1)], [(y, 1)], [(out, 1)])
+
+    def bool_gate(self, one: int, x: int) -> None:
+        """x * x = x (``one`` is unused, as in the JAX package)."""
+        self.add_constraint([(x, 1)], [(x, 1)], [(x, 1)])
+
+    def linear_gate(self, one: int, terms: Sequence[Term], out_terms: Sequence[Term]) -> None:
+        """(sum terms) * z[one] = (sum out_terms)."""
+        self.add_constraint(list(terms), [(one, 1)], list(out_terms))
+
+    @property
+    def num_constraints(self) -> int:
+        return len(self._constraints)
+
+    @property
+    def num_vars(self) -> int:
+        return self._num_vars
 
     def build(self, domain: Optional[Domain] = None) -> R1CS:
         m = len(self._constraints)

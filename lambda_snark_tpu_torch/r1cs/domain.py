@@ -51,6 +51,11 @@ class Domain:
             return Domain.roots(m, modulus, ROOTS_OF_UNITY_45BIT[m])
         return Domain.sequential(m, modulus)
 
+    @property
+    def use_ntt(self) -> bool:
+        """Whether the domain is the roots of unity (NTT interpolation)."""
+        return self.kind == ROOTS
+
     def points(self) -> List[int]:
         """The m domain points, in order."""
         q = self.modulus

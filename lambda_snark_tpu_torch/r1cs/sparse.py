@@ -3,7 +3,7 @@ with a batched SpMV in PyTorch."""
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -36,6 +36,16 @@ class SparseMatrix:
         self._staged: Dict[tuple, tuple] = {}
 
     @staticmethod
+    def from_dense(rows: Sequence[Sequence[int]]) -> "SparseMatrix":
+        """Build from a dense row-major table; zeros dropped."""
+        m = len(rows)
+        n = len(rows[0]) if m else 0
+        if any(len(r) != n for r in rows):
+            raise InvalidDimensionsError("ragged dense rows")
+        return SparseMatrix.from_map(m, n, {(i, j): v for i, r in enumerate(rows)
+                                            for j, v in enumerate(r)})
+
+    @staticmethod
     def from_map(rows: int, cols: int, entries: Dict[Tuple[int, int], int]) -> "SparseMatrix":
         """Build from a {(row, col): value} map, sorted by (row, col); zeros dropped."""
         items = sorted((rc, v) for rc, v in entries.items() if v != 0)
@@ -55,6 +65,30 @@ class SparseMatrix:
             cur += 1
             row_ptr[cur] = len(col_indices)
         return SparseMatrix(rows, cols, row_ptr, col_indices, values)
+
+    @staticmethod
+    def from_coo(rows: int, cols: int, entries: Sequence[Tuple[int, int, int]]) -> "SparseMatrix":
+        """Build from (row, col, value) triples: duplicates summed as
+        integers, zero sums dropped."""
+        acc: Dict[Tuple[int, int], int] = {}
+        for r, c, v in entries:
+            acc[(r, c)] = acc.get((r, c), 0) + int(v)
+        return SparseMatrix.from_map(rows, cols, acc)
+
+    def get(self, row: int, col: int) -> int:
+        """The entry at (row, col), 0 when absent."""
+        for i in range(self.row_ptr[row], self.row_ptr[row + 1]):
+            if self.col_indices[i] == col:
+                return self.values[i]
+        return 0
+
+    def to_dense(self, modulus: Optional[int] = None) -> np.ndarray:
+        """The matrix as a dense (rows, cols) uint64 array, each value
+        reduced mod ``modulus`` when one is given."""
+        out = np.zeros((self.rows, self.cols), dtype=np.uint64)
+        for row, col, v in self.coo():
+            out[row, col] = v if modulus is None else v % modulus
+        return out
 
     def nnz(self) -> int:
         return len(self.values)

@@ -2,7 +2,7 @@
 
 The port's copy of the host part of ``utils/chacha.py``: ``seed_from_u64``
 (rand_core 0.6's PCG32 seed expansion), the DJB-variant block function, its
-numpy form over consecutive counters, and the generator, with
+numpy forms over consecutive counters (one key or many), and the generator, with
 ``next_u64`` = two keystream words, low first, and ``fill_u64`` the same
 draws vectorised. ZK blinding factors and masks (``prover_batched``,
 ``proof.succinct_batch``) and the host Gaussian sampler (``ops.gaussian``)
@@ -87,18 +87,9 @@ def _quarter_np(x, a: int, b: int, c: int, d: int) -> None:
     x[b] = (x[b] << np.uint32(7)) | (x[b] >> np.uint32(25))
 
 
-def chacha20_blocks_np(key_words: List[int], counter: int, nonce_words: List[int],
-                       nblocks: int) -> np.ndarray:
-    """``nblocks`` consecutive blocks as uint32 (nblocks, 16): row b is
-    ``chacha20_block(key, counter + b, nonce)`` word for word."""
-    ctrs = np.arange(nblocks, dtype=np.uint64) + np.uint64(counter)
-    state = np.empty((16, nblocks), dtype=np.uint32)
-    state[0], state[1], state[2], state[3] = 0x61707865, 0x3320646E, 0x79622D32, 0x6B206574
-    for i, k in enumerate(key_words):
-        state[4 + i] = k
-    state[12] = (ctrs & np.uint64(M32)).astype(np.uint32)
-    state[13] = (ctrs >> np.uint64(32)).astype(np.uint32)
-    state[14], state[15] = nonce_words[0], nonce_words[1]
+def _blocks_np(state: np.ndarray) -> np.ndarray:
+    """Twenty rounds on a uint32 state of 16 rows (any trailing shape),
+    plus the input state: the block function, vectorised."""
     x = state.copy()
     with np.errstate(over="ignore"):
         for _ in range(10):
@@ -111,7 +102,39 @@ def chacha20_blocks_np(key_words: List[int], counter: int, nonce_words: List[int
             _quarter_np(x, 2, 7, 8, 13)
             _quarter_np(x, 3, 4, 9, 14)
         x += state
-    return x.T
+    return x
+
+
+def _blocks_state(keys: np.ndarray, counter: int, nonce_words: List[int],
+                  nblocks: int) -> np.ndarray:
+    """The input states of ``nblocks`` consecutive counters for each key of
+    ``keys`` (uint32 (K, 8)), as uint32 (16, K, nblocks)."""
+    ctrs = np.arange(nblocks, dtype=np.uint64) + np.uint64(counter)
+    state = np.empty((16, keys.shape[0], nblocks), dtype=np.uint32)
+    state[0], state[1], state[2], state[3] = 0x61707865, 0x3320646E, 0x79622D32, 0x6B206574
+    state[4:12] = keys.T[:, :, None]
+    state[12] = (ctrs & np.uint64(M32)).astype(np.uint32)
+    state[13] = (ctrs >> np.uint64(32)).astype(np.uint32)
+    state[14], state[15] = nonce_words[0], nonce_words[1]
+    return state
+
+
+def chacha20_blocks_np(key_words: List[int], counter: int, nonce_words: List[int],
+                       nblocks: int) -> np.ndarray:
+    """``nblocks`` consecutive blocks as uint32 (nblocks, 16): row b is
+    ``chacha20_block(key, counter + b, nonce)`` word for word."""
+    keys = np.asarray(key_words, dtype=np.uint32)[None]
+    return _blocks_np(_blocks_state(keys, counter, nonce_words, nblocks))[:, 0].T
+
+
+def chacha20_blocks_keys_np(keys_words: np.ndarray, counter: int, nonce_words: List[int],
+                            nblocks: int) -> np.ndarray:
+    """``nblocks`` consecutive blocks for many keys at once: uint32
+    (K, nblocks, 16) from ``keys_words`` uint32 (K, 8); row (k, b) is
+    ``chacha20_block(keys[k], counter + b, nonce)`` word for word."""
+    keys = np.asarray(keys_words, dtype=np.uint32).reshape(-1, 8)
+    x = _blocks_np(_blocks_state(keys, counter, nonce_words, nblocks))
+    return np.moveaxis(x, 0, -1)
 
 
 class ChaCha20Rng:
@@ -138,6 +161,10 @@ class ChaCha20Rng:
         lo = self.next_u32()
         hi = self.next_u32()
         return lo | (hi << 32)
+
+    def gen_u64_mod(self, modulus: int) -> int:
+        """``next_u64() % modulus``, the reference's blinding draw."""
+        return self.next_u64() % modulus
 
     def _keystream_u32(self, n: int) -> np.ndarray:
         """The next ``n`` keystream words, as ``n`` calls of ``next_u32``

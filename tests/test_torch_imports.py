@@ -50,7 +50,10 @@ def test_every_module_imports_without_jax():
     assert out.stdout.strip() == "[]"
 
 
-@pytest.mark.parametrize("path", ["chip_smoke.py", "lambda_snark_tpu_torch"])
+@pytest.mark.parametrize("path", ["chip_smoke.py", "lambda_snark_tpu_torch",
+                                  "examples/torch_batch_proving.py",
+                                  "examples/torch_proof_service.py",
+                                  "examples/torch_succinct_openings.py"])
 def test_no_source_names_jax(path):
     root = os.path.join(REPO, path)
     files = [root] if root.endswith(".py") else [

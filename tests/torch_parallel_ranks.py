@@ -73,6 +73,25 @@ def ntt_rank(cases) -> dict:
     return out
 
 
+def mesh_keywords_rank() -> dict:
+    """On a world of 2: ``make_mesh(devices=)`` over the ranks in order
+    (and a longer list, of which it takes the first two),
+    ``ring_mesh(n_devices=)``, and the keywords' errors."""
+    out = {"listed": make_mesh([2], ["sp"], device="cpu", devices=[0, 1]).mesh.tolist(),
+           "longer": make_mesh([1, 2], device="cpu", devices=[0, 1, 5]).mesh.tolist(),
+           "ring": tuple(ring_mesh(n_devices=2, device="cpu").shape)}
+    errors = {}
+    for name, fn in (("reversed", lambda: make_mesh([2], ["sp"], device="cpu", devices=[1, 0])),
+                     ("short", lambda: make_mesh([2], ["sp"], device="cpu", devices=[0])),
+                     ("disagree", lambda: ring_mesh(2, device="cpu", n_devices=1))):
+        try:
+            fn()
+        except ValueError as exc:
+            errors[name] = str(exc)
+    out["errors"] = errors
+    return out
+
+
 def evals_of(r1cs, witnesses):
     """(3, B, m) constraint evaluations of the witnesses, as int64 words."""
     w = modarith.to_words(witness_words(witnesses, r1cs.n, r1cs.modulus))
